@@ -1,0 +1,60 @@
+"""Loads state exported from the JAX package into the port's blocks.
+
+The JAX package keeps its parameters as arrays on its blocks (for this
+slice: the raw ``Constellation`` points). ``load_numpy_state`` copies
+such arrays, exported as NumPy, into the matching parameters of a torch
+block. Structure that the port rebuilds itself (an LDPC code's base
+matrix, lifting size, edge list and edge masks) is checked for equality
+instead of overwritten.
+
+Names are the port's dotted module paths: ``"raw_points"`` on a
+``Constellation``, ``"constellation.raw_points"`` on a ``Mapper`` or
+``Demapper``; ``"bm"``/``"z"`` on an ``LDPC5GEncoder``; and on an
+``LDPC5GDecoder`` ``"encoder.bm"``, ``"encoder.z"``, ``"lifted.edges"``
+(rows ``(r, c, s mod Z)``) and ``"lifted.edge_mask"``.
+"""
+
+import numpy as np
+import torch
+
+__all__ = ["load_numpy_state"]
+
+
+def _structure(block):
+    """Dotted name -> NumPy array of every checked structure entry."""
+    out = {}
+    for prefix, mod in block.named_modules():
+        if hasattr(mod, "numpy_structure"):
+            for k, v in mod.numpy_structure().items():
+                out[f"{prefix}.{k}" if prefix else k] = v
+    return out
+
+
+def load_numpy_state(block, arrays):
+    """Loads ``arrays`` (dict of name -> ``np.ndarray``) into ``block``.
+
+    Parameters are overwritten in place (same shape, cast to the
+    parameter's dtype, on its device); structure entries must be equal.
+    Raises ``KeyError`` for an unknown name and ``ValueError`` for a
+    shape or structure mismatch.
+    """
+    params = dict(block.named_parameters())
+    structure = _structure(block)
+    for name, value in arrays.items():
+        value = np.asarray(value)
+        if name in params:
+            p = params[name]
+            if tuple(value.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {value.shape} does not "
+                                 f"match {tuple(p.shape)}")
+            with torch.no_grad():
+                p.copy_(torch.as_tensor(value).to(device=p.device,
+                                                  dtype=p.dtype))
+        elif name in structure:
+            mine = np.asarray(structure[name])
+            if mine.shape != value.shape or not np.array_equal(mine, value):
+                raise ValueError(f"{name}: the exported structure differs "
+                                 "from the one this block built")
+        else:
+            raise KeyError(f"{name}: no such parameter or structure entry "
+                           f"(known: {sorted(params) + sorted(structure)})")

@@ -1,0 +1,169 @@
+"""Core of the PyTorch port against the JAX package: precision and dtypes,
+the Block casting contract, ebnodb2no, hard decisions and the error
+metrics, and the rule that the port never imports JAX."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import sionna_tpu.phy.utils as jutils
+import sionna_tpu_torch.phy.utils as tutils
+from sionna_tpu_torch.phy import Block, config, dtypes
+from sionna_tpu_torch.phy.utils import expand_to_rank
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+class _Echo(Block):
+    """Returns its (cast) inputs."""
+
+    def forward(self, *args, **kwargs):
+        return args, kwargs
+
+
+@pytest.fixture
+def port_config():
+    """The port's global config, restored after the test."""
+    seed, precision = config.seed, config.precision
+    yield config
+    config.seed, config.precision = seed, precision
+
+
+def test_precision_dtypes(port_config):
+    assert dtypes["single"]["torch"] == {"rdtype": torch.float32,
+                                         "cdtype": torch.complex64}
+    assert dtypes["double"]["torch"] == {"rdtype": torch.float64,
+                                         "cdtype": torch.complex128}
+    assert (port_config.rdtype, port_config.cdtype) == (torch.float32,
+                                                        torch.complex64)
+    port_config.precision = "double"
+    assert (port_config.rdtype, port_config.cdtype) == (torch.float64,
+                                                        torch.complex128)
+    assert _Echo().rdtype == torch.float64
+    assert _Echo(precision="single").cdtype == torch.complex64
+    with pytest.raises(ValueError):
+        port_config.precision = "half"
+    with pytest.raises(ValueError):
+        _Echo(precision="half")
+
+
+@pytest.mark.parametrize("precision", ["single", "double"])
+def test_block_casting_contract(precision):
+    blk = _Echo(precision=precision)
+    rdt, cdt = dtypes[precision]["torch"].values()
+    ints = torch.arange(4)
+    (f, c, i, b, a, s, nested), kw = blk(
+        torch.ones(3, dtype=torch.float64), torch.ones(3, dtype=torch.complex128),
+        ints, torch.ones(2, dtype=torch.bool), np.ones(2, np.float64), 0.5,
+        [torch.ones(1, dtype=torch.float16), 7], z=np.ones(2, np.complex64))
+    assert f.dtype == rdt and c.dtype == cdt and a.dtype == rdt
+    assert i is ints and b.dtype == torch.bool
+    assert isinstance(s, torch.Tensor) and s.dtype == rdt and float(s) == 0.5
+    assert nested[0].dtype == rdt and nested[1] == 7
+    assert kw["z"].dtype == cdt
+
+
+def test_block_buffers_follow_to():
+    blk = _Echo()
+    assert blk.device == torch.device("cpu")
+    assert blk.to("cpu") is blk and blk.device.type == "cpu"
+    assert dict(blk.named_parameters()) == {}
+
+
+def test_seed_reproduces_streams(port_config):
+    from sionna_tpu_torch.phy import BinarySource
+    port_config.seed = 3
+    a = BinarySource()([64])
+    n1 = port_config.np_rng.normal()
+    port_config.seed = 3
+    assert torch.equal(BinarySource()([64]), a)
+    assert port_config.np_rng.normal() == n1
+    g = torch.Generator().manual_seed(5)
+    b = BinarySource()([64], generator=g)
+    assert torch.equal(
+        BinarySource()([64], generator=torch.Generator().manual_seed(5)), b)
+
+
+def test_expand_to_rank_matches_jax():
+    x = np.arange(6.).reshape(2, 3)
+    for rank, axis in [(4, -1), (4, 0), (3, 1), (2, 0)]:
+        want = np.asarray(jutils.expand_to_rank(jnp.asarray(x), rank, axis))
+        got = expand_to_rank(torch.as_tensor(x), rank, axis).numpy()
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+
+
+def test_ebnodb2no_matches_jax():
+    # f32 pow/div: XLA:CPU and torch may round the last place
+    # differently; 2 ULP of f32 relative.
+    for ebno_db in (-2.0, 0.0, 3.0, 4.5, 10.0):
+        for nbps, r in ((1, 1.0), (2, 0.5), (4, 1024 / 2048), (6, 0.33)):
+            want = np.asarray(jutils.ebnodb2no(jnp.float32(ebno_db), nbps, r),
+                              np.float32)
+            got = tutils.ebnodb2no(ebno_db, nbps, r)
+            assert got.dtype == torch.float32
+            np.testing.assert_allclose(got.numpy(), want, rtol=2.4e-7)
+    got = tutils.ebnodb2no(torch.tensor([1., 2.], dtype=torch.float64), 2,
+                           0.5, precision="double")
+    assert got.dtype == torch.float64 and got.shape == (2,)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tutils.ebnodb2no(1.0, 2, 0.5, resource_grid=object())
+
+
+def test_hard_decisions_and_metrics_match_jax():
+    rng = np.random.default_rng(0)
+    llr = rng.normal(size=(50, 40)).astype(np.float32)
+    llr[0, :3] = 0.0
+    hd = tutils.hard_decisions(torch.as_tensor(llr))
+    np.testing.assert_array_equal(
+        hd.numpy(), np.asarray(jutils.hard_decisions(jnp.asarray(llr))))
+    assert hd.dtype == torch.float32
+    b = rng.integers(0, 2, (50, 40)).astype(np.float32)
+    b_hat = b.copy()
+    flips = rng.random(b.shape) < 0.01
+    b_hat[flips] = 1 - b_hat[flips]
+    tb, tbh = torch.as_tensor(b), torch.as_tensor(b_hat)
+    jb, jbh = jnp.asarray(b), jnp.asarray(b_hat)
+    assert int(tutils.count_errors(tb, tbh)) == \
+        int(jutils.count_errors(jb, jbh))
+    assert int(tutils.count_block_errors(tb, tbh)) == \
+        int(jutils.count_block_errors(jb, jbh))
+    # same integer counts divided in f64: exact
+    assert float(tutils.compute_ber(tb, tbh)) == \
+        float(jutils.compute_ber(jb, jbh))
+    assert float(tutils.compute_bler(tb, tbh)) == \
+        float(jutils.compute_bler(jb, jbh))
+    assert tutils.compute_ber(tb, tbh, precision="single").dtype == \
+        torch.float32
+
+
+def test_port_never_imports_jax():
+    code = (
+        "import sys\n"
+        "import sionna_tpu_torch\n"
+        "import sionna_tpu_torch.phy.config, sionna_tpu_torch.phy.block\n"
+        "import sionna_tpu_torch.phy.constants, sionna_tpu_torch.phy.mapping\n"
+        "import sionna_tpu_torch.phy.channel.awgn\n"
+        "import sionna_tpu_torch.phy.fec.ldpc.encoding\n"
+        "import sionna_tpu_torch.phy.fec.ldpc.decoding\n"
+        "import sionna_tpu_torch.phy.utils.tensors\n"
+        "import sionna_tpu_torch.phy.utils.misc\n"
+        "import sionna_tpu_torch.phy.utils.metrics\n"
+        "import sionna_tpu_torch.phy.utils.sim\n"
+        "import sionna_tpu_torch.phy.utils.interop\n"
+        "import sionna_tpu_torch._build\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'sionna_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
