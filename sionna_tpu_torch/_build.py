@@ -1,11 +1,12 @@
 """Builds the port's hand-written CUDA kernels and binds them with ctypes.
 
 Each kernel is a ``.cu`` file under ``sionna_tpu_torch/csrc/`` with a
-plain C interface. On first use, ``nvcc`` compiles it for Hopper
-(``sm_90a``) into ``build/sionna_tpu_torch/`` at the repository root; the
-library's file name carries a hash of the source and the flags, so it is
-rebuilt only when either changes. Nothing is downloaded, and a failed
-build raises.
+plain C interface (shared device code in ``csrc/*.cuh``). On first use,
+``nvcc`` compiles it for Hopper (``sm_90a``) into
+``build/sionna_tpu_torch/`` at the repository root; the library's file
+name carries a hash of the source, the headers and the flags, so it is
+rebuilt only when one of them changes. Nothing is downloaded, and a
+failed build raises.
 """
 
 import ctypes
@@ -55,6 +56,8 @@ class CudaKernel:
         """Compiles the source (unless a library of the same source and
         flags exists) and returns the library's path."""
         digest = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC_DIR.glob("*.cuh")):
+            digest.update(header.read_bytes())
         digest.update(" ".join(NVCC_FLAGS).encode())
         path = BUILD_DIR / f"lib{self.name}_{digest.hexdigest()[:16]}.so"
         log = path.with_suffix(".log")

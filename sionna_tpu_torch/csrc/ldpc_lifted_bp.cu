@@ -26,85 +26,29 @@
 // splits rows across more threads.
 //
 // Numerics follow the plain version (LDPC5GLiftedBP.decode) operation by
-// operation, in the same order: tanhf/log1pf without fast math are the
-// functions torch's CUDA tanh/log1p call, and no expression here has the
+// operation, in the same order: the check-node math is shared with the
+// layered kernel in ldpc_cn.cuh, and no expression here has the
 // a * b + c shape that nvcc would contract into an FMA.
 
 #include <cuda_runtime.h>
 
+#include "ldpc_cn.cuh"
+
 namespace {
 
-constexpr int kMaxDegree = 32;  // largest base row / column degree
+using sionna_ldpc::clampf;
+using sionna_ldpc::kMaxDegree;
 
-__device__ __forceinline__ float clampf(float x, float c) {
-  return fminf(fmaxf(x, -c), c);
-}
-
-__device__ __forceinline__ float signf(float x) {
-  return x < 0.f ? -1.f : 1.f;
-}
-
-// One check-node row r for lane i. mode 0: boxplus; 1: (offset) min-sum.
+// One check-node row for lane i: replaces the row's d messages by the
+// check-node update, in place. mode 0: boxplus; 1: (offset) min-sum.
 __device__ void cn_row(float* __restrict__ msg, const float* __restrict__ mask,
                        const int* __restrict__ edges, int d, int z, int i,
                        float clip, float offset, int mode) {
-  float val[kMaxDegree];  // tanh(|m|/2) (boxplus) or |m| (min-sum)
-  float sgn[kMaxDegree];
-  float sign_tot = 1.f;
-  for (int k = 0; k < d; ++k) {
-    const int idx = edges[k] * z + i;
-    const float m = msg[idx];
-    const bool act = mask[idx] > 0.f;
-    float v = mode == 0 ? tanhf(fabsf(m) / 2.f) : fabsf(m);
-    float s = signf(m);
-    if (!act) {
-      v = mode == 0 ? 1.f : 1e30f;
-      s = 1.f;
-    }
-    val[k] = v;
-    sgn[k] = s;
-    sign_tot = k == 0 ? s : sign_tot * s;
-  }
-  if (mode == 0) {
-    const float hi = (float)(1.0 - 1e-7);
-    // backward products bwd[k] = t[k] * ... * t[d-1], accumulated from
-    // the end as ((t[d-1] * t[d-2]) * t[d-3]) ...
-    float bwd[kMaxDegree];
-    bwd[d - 1] = val[d - 1];
-    for (int k = d - 2; k >= 0; --k) bwd[k] = bwd[k + 1] * val[k];
-    float fwd = 1.f;  // fwd[k-1] = t[0] * ... * t[k-1]
-    for (int k = 0; k < d; ++k) {
-      float ext;
-      if (d == 1) {
-        ext = hi;
-      } else if (k == 0) {
-        ext = fminf(bwd[1], hi);
-      } else if (k == d - 1) {
-        ext = fminf(fwd, hi);
-      } else {
-        ext = fminf(fwd * bwd[k + 1], hi);
-      }
-      fwd = k == 0 ? val[0] : fwd * val[k];
-      const float mag = log1pf(ext) - log1pf(-ext);
-      const int idx = edges[k] * z + i;
-      msg[idx] = sign_tot * sgn[k] * fminf(mag, clip) * mask[idx];
-    }
-  } else {
-    float min1 = val[0];
-    for (int k = 1; k < d; ++k) min1 = fminf(min1, val[k]);
-    float min2 = 1e30f;
-    int n_min = 0;
-    for (int k = 0; k < d; ++k) {
-      min2 = fminf(min2, val[k] > min1 ? val[k] : 1e30f);
-      n_min += val[k] == min1;
-    }
-    for (int k = 0; k < d; ++k) {
-      float ext = (val[k] == min1 && n_min == 1) ? min2 : min1;
-      if (offset > 0.f) ext = fmaxf(ext - offset, 0.f);
-      const int idx = edges[k] * z + i;
-      msg[idx] = sign_tot * sgn[k] * fminf(ext, clip) * mask[idx];
-    }
-  }
+  sionna_ldpc::cn_update(
+      [&](int k) { return msg[edges[k] * z + i]; },
+      [&](int k) { return mask[edges[k] * z + i]; },
+      [&](int k, float c2v) { msg[edges[k] * z + i] = c2v; }, d, clip,
+      offset, mode);
 }
 
 // One variable-node column c for lane j.
@@ -180,7 +124,7 @@ __global__ void lifted_bp_kernel(
 extern "C" {
 
 // Largest row or column degree the kernel's local arrays hold.
-int sionna_ldpc_lifted_bp_max_degree() { return kMaxDegree; }
+int sionna_ldpc_max_degree() { return kMaxDegree; }
 
 const char* sionna_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -6,3 +6,4 @@ from . import constants, utils
 from .mapping import (pam_gray, qam, pam, Constellation, Mapper, Demapper,
                       SymbolLogits2LLRs, BinarySource)
 from .channel import AWGN
+from . import channel, fec, mimo, ofdm

@@ -1,2 +1,4 @@
 """Forward error correction (counterpart of ``sionna_tpu.phy.fec``; the
-slice ports 5G LDPC)."""
+port has 5G LDPC and the row-column interleaver)."""
+
+from . import interleaving, ldpc

@@ -3,9 +3,10 @@
 PyTorch counterpart of the lifted engine of
 ``sionna_tpu/phy/fec/ldpc/decoding.py``: :class:`LDPC5GDecoder` with the
 5G rate recovery, :class:`LDPC5GLiftedBP` (tables and the plain torch
-decode) and :func:`lifted_bp_cuda`, the wrapper of the hand-written CUDA
-kernel ``csrc/ldpc_lifted_bp.cu`` that replaces the Pallas kernel
-``_lifted_pallas_decode``.
+decodes, flooding and layered) and the wrappers of the two hand-written
+CUDA kernels that replace the Pallas kernel ``_lifted_pallas_decode``:
+:func:`lifted_bp_cuda` (flooding, ``csrc/ldpc_lifted_bp.cu``) and
+:func:`layered_bp_cuda` (layered, ``csrc/ldpc_layered_bp.cu``).
 
 Which one runs depends only on where the LLRs lie: a CPU tensor goes
 through the plain decode, a CUDA tensor through the kernel. A CUDA
@@ -28,7 +29,7 @@ from ...._build import CudaKernel
 from .encoding import LDPC5GEncoder
 
 __all__ = ["LDPC5GDecoder", "LDPC5GLiftedBP", "lifted_bp_cuda",
-           "LIFTED_BP_KERNEL"]
+           "layered_bp_cuda", "LIFTED_BP_KERNEL", "LAYERED_BP_KERNEL"]
 
 _ROADMAP_SEGMENT = ("the segment/matmul BP engines (generic "
                     "parity-check matrices, callbacks, return_state) are "
@@ -47,7 +48,19 @@ LIFTED_BP_KERNEL = CudaKernel(
     functions={
         "sionna_ldpc_lifted_bp": ([_P] * 10 + [_I] * 6 + [_F, _F, _I, _P],
                                   _I),
-        "sionna_ldpc_lifted_bp_max_degree": ([], _I),
+        "sionna_ldpc_max_degree": ([], _I),
+        "sionna_cuda_error_string": ([_I], ctypes.c_char_p),
+    })
+
+#: The CUDA kernel of the layered lifted BP decoder (built on first use).
+LAYERED_BP_KERNEL = CudaKernel(
+    name="ldpc_layered_bp",
+    source="ldpc_layered_bp.cu",
+    replaces="sionna_tpu/phy/fec/ldpc/decoding.py:1203",
+    functions={
+        "sionna_ldpc_layered_bp": ([_P] * 8 + [_I] * 6 + [_F, _F, _I, _P],
+                                   _I),
+        "sionna_ldpc_max_degree": ([], _I),
         "sionna_cuda_error_string": ([_I], ctypes.c_char_p),
     })
 
@@ -59,8 +72,11 @@ class LDPC5GDecoder(Block):
     ``engine`` "auto", "lifted" and "pallas" all select the lifted
     engine: the plain torch decode for CPU tensors, the CUDA kernel for
     CUDA tensors. ``cn_update`` may be "boxplus" or "boxplus-phi" (both
-    the exact tanh rule), "minsum" or "offset-minsum" (offset 0.5), with
-    the flooding schedule and f32 (or, on the CPU, f64) messages.
+    the exact tanh rule), "minsum" or "offset-minsum" (offset 0.5);
+    ``cn_schedule`` "flooding" or "layered" (one layer per lifted base
+    row), with f32 (or, on the CPU, f64) messages. ``internal_precision``
+    may be None or "bf16"; as in the JAX package, the lifted engine does
+    not read it.
     """
 
     def __init__(self, encoder, cn_update="boxplus-phi",
@@ -77,15 +93,15 @@ class LDPC5GDecoder(Block):
         if engine not in ("auto", "lifted", "pallas"):
             raise ValueError("engine must be 'auto', 'lifted', 'pallas', "
                              "'segment' or 'matmul'")
-        if not (isinstance(cn_schedule, str)
-                and cn_schedule == "flooding"):
-            raise NotImplementedError(
-                "only cn_schedule='flooding' is ported; the layered "
-                "schedule is ROADMAP.md, queue 2 item K3")
-        if internal_precision is not None:
-            raise NotImplementedError(
-                "internal_precision (bf16 message storage) is not ported "
-                "yet: see ROADMAP.md, queue 2 item K4")
+        if isinstance(cn_schedule, (list, tuple, np.ndarray)):
+            raise NotImplementedError("custom CN schedules: "
+                                      + _ROADMAP_SEGMENT)
+        if cn_schedule not in ("flooding", "layered"):
+            raise ValueError(
+                "cn_schedule must be 'flooding', 'layered', or a "
+                "list of CN-index arrays")
+        if internal_precision not in (None, "bf16"):
+            raise ValueError("internal_precision must be None or 'bf16'")
         if callable(cn_update):
             raise NotImplementedError("custom CN updates: "
                                       + _ROADMAP_SEGMENT)
@@ -110,6 +126,7 @@ class LDPC5GDecoder(Block):
         self._return_infobits = bool(return_infobits)
         self._num_iter = num_iter
         self._llr_max = float(llr_max)
+        self._layered = cn_schedule == "layered"
 
         # prune the degree-1 parity VNs that are never transmitted
         pcm = encoder.pcm
@@ -193,7 +210,8 @@ class LDPC5GDecoder(Block):
             raise ValueError("num_iter must be a nonnegative int.")
         in_shape = llr_ch.shape
         enc = self.encoder
-        llr_out = -self.lifted(self.recover_llrs(llr_ch), n_it)
+        llr_out = -self.lifted(self.recover_llrs(llr_ch), n_it,
+                               layered=self._layered)
         x_hat = (llr_out > 0).to(self.rdtype) if self._hard_out else llr_out
 
         if self._return_infobits:
@@ -218,7 +236,7 @@ def _lifted_cn_phase(v2c, masks, row_edges, n_edges, clip, offset, mode,
     with optional offset. ``mode="boxplus"``: tanh rule with prefix and
     suffix products, extrinsic clamped at 1 - 1e-7, magnitude
     log1p(x) - log1p(-x)."""
-    ref = v2c[0]
+    ref = next(v for v in v2c if v is not None)
     c2v = [None] * n_edges
     big = torch.tensor(1e30, dtype=ref.dtype, device=ref.device)
     one = torch.tensor(1., dtype=ref.dtype, device=ref.device)
@@ -310,7 +328,7 @@ class LDPC5GLiftedBP(nn.Module):
     moves them to the device the kernel reads them on.
 
     Calling the module decodes with the plain torch version on a CPU
-    tensor and with the CUDA kernel on a CUDA tensor.
+    tensor and with the CUDA kernel of the schedule on a CUDA tensor.
     """
 
     def __init__(self, encoder, num_cns, num_vns, llr_max, offset=0.0,
@@ -379,13 +397,17 @@ class LDPC5GLiftedBP(nn.Module):
         return {"edges": np.asarray(self._edges, np.int64).reshape(-1, 3),
                 "edge_mask": np.stack(self._edge_mask)}
 
-    def forward(self, llr_int, num_iter):
+    def forward(self, llr_int, num_iter, layered=False):
         """llr_int: [batch, num_vns] classic-convention LLRs. Returns
-        marginals [batch, num_vns]."""
+        marginals [batch, num_vns] after ``num_iter`` flooding or
+        (``layered``) layered iterations."""
         if llr_int.is_cuda:
-            return lifted_bp_cuda(self, llr_int, num_iter)
+            return (layered_bp_cuda if layered else lifted_bp_cuda)(
+                self, llr_int, num_iter)
         if llr_int.device.type != "cpu":
             raise ValueError(f"no lifted BP decoder for {llr_int.device}")
+        if layered:
+            return self.decode_layered(llr_int, num_iter)
         return self.decode(llr_int, num_iter)
 
     def decode(self, llr_int, num_iter):
@@ -430,23 +452,55 @@ class LDPC5GLiftedBP(nn.Module):
             v2c, marg = vn_phase(c2v)
         return marg.reshape(batch, -1)[:, :self._num_vns]
 
+    def decode_layered(self, llr_int, num_iter):
+        """Plain torch version of the layered (serial-C) schedule, op for
+        op as the JAX package's ``decode_layered`` (the layered kernel's
+        oracle): base rows are processed in order, each row's new check
+        messages updating the posterior at once. Only the check messages
+        are clipped; clipping the posterior would break the marg/c2v
+        bookkeeping. llr_int: [batch, num_vns]. Returns marginals
+        [batch, num_vns]."""
+        z = self._z
+        batch = llr_int.shape[0]
+        pad = self._n_col_blocks * z - self._num_vns
+        llr_vn = F.pad(llr_int, (0, pad)).reshape(batch, -1, z)
+        masks = list(self.masks.to(llr_int.dtype))
+        edges = self._edges
+        n_e = len(edges)
+        marg = [llr_vn[:, c] for c in range(self._n_col_blocks)]
+        c2v = [torch.zeros_like(marg[0]) for _ in range(n_e)]
+        for _ in range(num_iter):
+            for r, eids in self._row_edges.items():
+                v2c = [None] * n_e
+                for e in eids:
+                    _, c, s = edges[e]
+                    v2c[e] = torch.roll(marg[c], -s, dims=-1) - c2v[e]
+                c2v_new = _lifted_cn_phase(
+                    v2c, masks, {r: eids}, n_e, self._llr_max,
+                    self._offset, self._cn_mode, self._edge_full)
+                for e in eids:
+                    _, c, s = edges[e]
+                    delta = c2v_new[e] - c2v[e]
+                    marg[c] = marg[c] + torch.roll(delta, s, dims=-1)
+                    c2v[e] = c2v_new[e]
+        out = torch.stack(marg, dim=1).reshape(batch, -1)
+        return out[:, :self._num_vns]
 
-def lifted_bp_cuda(lifted, llr_int, num_iter):
-    """Runs the lifted BP decode as one launch of the CUDA kernel
-    ``csrc/ldpc_lifted_bp.cu`` on the current stream.
 
-    llr_int: contiguous-able f32 CUDA tensor [batch, num_vns] of
-    classic-convention LLRs, on the device of ``lifted``'s tables.
-    Returns marginals [batch, num_vns]. Raises on anything the kernel
-    does not take; it has no backward."""
+def _launch(kern, entry, lifted, llr_int, num_iter, tables):
+    """Checks the input, then runs one launch of the lifted BP kernel
+    ``kern`` through its C entry point ``entry`` on the current stream
+    (arguments: padded LLRs, ``tables``, output, a [batch, E_b, Z]
+    scratch buffer, the sizes and the CN rule) and counts it. Returns
+    marginals [batch, num_vns]."""
+    name = f"{kern.name} kernel"
     if not llr_int.is_cuda:
-        raise ValueError("lifted_bp_cuda needs a CUDA tensor")
+        raise ValueError(f"the {name} needs a CUDA tensor")
     if llr_int.dtype != torch.float32:
-        raise TypeError(f"lifted_bp_cuda takes float32, got "
-                        f"{llr_int.dtype}")
+        raise TypeError(f"the {name} takes float32, got {llr_int.dtype}")
     if llr_int.requires_grad:
-        raise RuntimeError("the lifted BP kernel has no backward; decode "
-                           "under torch.no_grad() or detach the LLRs")
+        raise RuntimeError(f"the {name} has no backward; decode under "
+                           "torch.no_grad() or detach the LLRs")
     if llr_int.dim() != 2 or llr_int.shape[1] != lifted._num_vns:
         raise ValueError(f"expected LLRs [batch, {lifted._num_vns}], got "
                          f"{tuple(llr_int.shape)}")
@@ -463,22 +517,46 @@ def lifted_bp_cuda(lifted, llr_int, num_iter):
     out = torch.empty_like(llr_p)
     if batch == 0:
         return out[:, :lifted._num_vns]
-    msg = torch.empty((batch, n_edges, z), dtype=torch.float32,
-                      device=llr_int.device)
-    lib = LIFTED_BP_KERNEL.library()
-    if lifted._max_degree > lib.sionna_ldpc_lifted_bp_max_degree():
+    scratch = torch.empty((batch, n_edges, z), dtype=torch.float32,
+                          device=llr_int.device)
+    lib = kern.library()
+    if lifted._max_degree > lib.sionna_ldpc_max_degree():
         raise ValueError(f"base-graph degree {lifted._max_degree} exceeds "
                          "the kernel's bound")
-    tables = (lifted.masks, lifted.edge_col, lifted.edge_shift,
-              lifted.row_ptr, lifted.row_edge_ids, lifted.col_ptr,
-              lifted.col_edge_ids)
     with torch.cuda.device(llr_int.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sionna_ldpc_lifted_bp(
+        err = getattr(lib, entry)(
             llr_p.data_ptr(), *(t.data_ptr() for t in tables),
-            out.data_ptr(), msg.data_ptr(), batch, lifted._n_row_blocks,
+            out.data_ptr(), scratch.data_ptr(), batch, lifted._n_row_blocks,
             n_cols, n_edges, z, num_iter, lifted._llr_max, lifted._offset,
             0 if lifted._cn_mode == "boxplus" else 1, stream)
-    LIFTED_BP_KERNEL.check(err)
-    LIFTED_BP_KERNEL.launches += 1
+    kern.check(err)
+    kern.launches += 1
     return out[:, :lifted._num_vns]
+
+
+def lifted_bp_cuda(lifted, llr_int, num_iter):
+    """Runs the flooding lifted BP decode as one launch of the CUDA
+    kernel ``csrc/ldpc_lifted_bp.cu`` on the current stream.
+
+    llr_int: contiguous-able f32 CUDA tensor [batch, num_vns] of
+    classic-convention LLRs, on the device of ``lifted``'s tables.
+    Returns marginals [batch, num_vns]. Raises on anything the kernel
+    does not take; it has no backward."""
+    return _launch(LIFTED_BP_KERNEL, "sionna_ldpc_lifted_bp", lifted,
+                   llr_int, num_iter,
+                   (lifted.masks, lifted.edge_col, lifted.edge_shift,
+                    lifted.row_ptr, lifted.row_edge_ids, lifted.col_ptr,
+                    lifted.col_edge_ids))
+
+
+def layered_bp_cuda(lifted, llr_int, num_iter):
+    """Runs the layered lifted BP decode as one launch of the CUDA kernel
+    ``csrc/ldpc_layered_bp.cu`` on the current stream.
+
+    Takes and returns what :func:`lifted_bp_cuda` does. Raises on
+    anything the kernel does not take; it has no backward."""
+    return _launch(LAYERED_BP_KERNEL, "sionna_ldpc_layered_bp", lifted,
+                   llr_int, num_iter,
+                   (lifted.masks, lifted.edge_col, lifted.edge_shift,
+                    lifted.row_ptr, lifted.row_edge_ids))

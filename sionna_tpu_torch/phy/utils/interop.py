@@ -1,21 +1,29 @@
 """Loads state exported from the JAX package into the port's blocks.
 
-The JAX package keeps its parameters as arrays on its blocks (for this
-slice: the raw ``Constellation`` points). ``load_numpy_state`` copies
-such arrays, exported as NumPy, into the matching parameters of a torch
-block. Structure that the port rebuilds itself (an LDPC code's base
-matrix, lifting size, edge list and edge masks) is checked for equality
-instead of overwritten.
+The JAX package keeps its parameters as arrays on its blocks (the raw
+``Constellation`` points). ``load_numpy_state`` copies such arrays,
+exported as NumPy, into the matching parameters of a torch block.
+Structure that the port rebuilds itself from the same sources (an LDPC
+code's base matrix, lifting size, edge list and edge masks; the Kronecker
+pilots and pilot mask; a TDL model's delays and powers) is checked for
+equality instead of overwritten.
 
 Names are the port's dotted module paths: ``"raw_points"`` on a
 ``Constellation``, ``"constellation.raw_points"`` on a ``Mapper`` or
-``Demapper``; ``"bm"``/``"z"`` on an ``LDPC5GEncoder``; and on an
+``Demapper``; ``"bm"``/``"z"`` on an ``LDPC5GEncoder``; on an
 ``LDPC5GDecoder`` ``"encoder.bm"``, ``"encoder.z"``, ``"lifted.edges"``
-(rows ``(r, c, s mod Z)``) and ``"lifted.edge_mask"``.
+(rows ``(r, c, s mod Z)``) and ``"lifted.edge_mask"``; on a
+``ResourceGridMapper`` ``"pilot_pattern.mask"`` and
+``"pilot_pattern.pilots"``; on an ``OFDMChannel`` with a TDL model
+``"gen.channel_model.delays"`` (normalised), ``".mean_powers"`` (diffuse
+cluster powers) and, for LoS models, ``".los_power"``. Objects that are
+not modules (a ``PilotPattern``, a ``TDL``) take the same names without
+the prefix.
 """
 
 import numpy as np
 import torch
+from torch import nn
 
 __all__ = ["load_numpy_state"]
 
@@ -23,7 +31,9 @@ __all__ = ["load_numpy_state"]
 def _structure(block):
     """Dotted name -> NumPy array of every checked structure entry."""
     out = {}
-    for prefix, mod in block.named_modules():
+    mods = block.named_modules() if isinstance(block, nn.Module) \
+        else [("", block)]
+    for prefix, mod in mods:
         if hasattr(mod, "numpy_structure"):
             for k, v in mod.numpy_structure().items():
                 out[f"{prefix}.{k}" if prefix else k] = v
@@ -38,7 +48,8 @@ def load_numpy_state(block, arrays):
     Raises ``KeyError`` for an unknown name and ``ValueError`` for a
     shape or structure mismatch.
     """
-    params = dict(block.named_parameters())
+    params = dict(block.named_parameters()) \
+        if isinstance(block, nn.Module) else {}
     structure = _structure(block)
     for name, value in arrays.items():
         value = np.asarray(value)

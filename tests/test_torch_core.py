@@ -114,8 +114,16 @@ def test_ebnodb2no_matches_jax():
     got = tutils.ebnodb2no(torch.tensor([1., 2.], dtype=torch.float64), 2,
                            0.5, precision="double")
     assert got.dtype == torch.float64 and got.shape == (2,)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tutils.ebnodb2no(1.0, 2, 0.5, resource_grid=object())
+    # with the OFDM overheads of the flagship's resource grid
+    from sionna_tpu.phy.ofdm import ResourceGrid as JResourceGrid
+    from sionna_tpu_torch.phy.ofdm import ResourceGrid
+    kw = dict(num_ofdm_symbols=14, fft_size=256, subcarrier_spacing=30e3,
+              cyclic_prefix_length=16, pilot_pattern="kronecker",
+              pilot_ofdm_symbol_indices=[2, 11])
+    want = np.asarray(jutils.ebnodb2no(jnp.float32(5.0), 4, 0.5,
+                                       JResourceGrid(**kw)))
+    got = tutils.ebnodb2no(5.0, 4, 0.5, resource_grid=ResourceGrid(**kw))
+    np.testing.assert_allclose(got.numpy(), want, rtol=2.4e-7)
 
 
 def test_hard_decisions_and_metrics_match_jax():
@@ -159,6 +167,11 @@ def test_port_never_imports_jax():
         "import sionna_tpu_torch.phy.utils.metrics\n"
         "import sionna_tpu_torch.phy.utils.sim\n"
         "import sionna_tpu_torch.phy.utils.interop\n"
+        "import sionna_tpu_torch.phy.utils.linalg\n"
+        "import sionna_tpu_torch.phy.fec.interleaving\n"
+        "import sionna_tpu_torch.phy.ofdm, sionna_tpu_torch.phy.mimo\n"
+        "import sionna_tpu_torch.phy.channel.tr38901\n"
+        "import sionna_tpu_torch.phy.channel.ofdm_channel\n"
         "import sionna_tpu_torch._build\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'sionna_tpu'))\n"
