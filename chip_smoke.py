@@ -1,15 +1,20 @@
 """Smoke test of the PyTorch port on one CUDA card (an H100).
 
 Drives the port's main paths on the card and checks that they went
-through the hand-written CUDA kernels of the lifted LDPC decoder:
+through the hand-written CUDA kernels of the lifted LDPC decoder, K1
+(flooding, ``csrc/ldpc_lifted_bp.cu``) and K3 (layered,
+``csrc/ldpc_layered_bp.cu``), each with the variants of the Pallas
+kernel's knobs (f32 or bf16 message storage; K1 also the ratio form of
+the boxplus magnitude):
 
 1. prints the card (``nvidia-smi``) and the torch/CUDA versions;
 2. builds both kernels from ``sionna_tpu_torch/csrc`` (one nvcc each,
-   started together);
-3. holds the flooding kernel (K1) against its plain torch version, for
-   three codes, three check-node rules, 0/1/20 iterations, two SNRs;
-4. holds the layered kernel (K3) against its plain torch version, for
-   the same codes and rules, 0/1/10 iterations, two SNRs;
+   started together) and prints ptxas's report of every variant;
+3. holds K1 f32, K1 bf16 and K1 ratio against their plain torch
+   versions, for three codes, three check-node rules, 0/1/20
+   iterations, two SNRs;
+4. holds K3 f32 and K3 bf16 against their plain torch versions, for the
+   same codes and rules, 0/1/10 iterations, two SNRs;
 5. runs the README quick-start link (5G LDPC k=1024, n=2048, 16-QAM,
    AWGN, APP demapper, BP-20 boxplus, batch 2000) through ``sim_ber`` at
    Eb/N0 3 and 4 dB: BLER bands, every tensor on the card, one K1
@@ -19,21 +24,38 @@ through the hand-written CUDA kernels of the lifted LDPC decoder:
    LMMSE, APP demapper, boxplus BP-20, batch 2048) through ``sim_ber``
    at Eb/N0 8 and 5 dB: BLER bands from a JAX run of the same link, every
    tensor on the card, one K1 launch per decoder call;
-7. the same link with ``cn_schedule="layered"``, 10 iterations, at
-   8 dB: its band, one K3 launch per decoder call;
-8. times (CUDA events, warm-up excluded): K1 (BP-20) and K3
-   (layered-10) against their plain versions at the flagship's
-   n=12288 x 2048 and K1 at the link's n=2048 x 2000, each output
-   first held identical to the plain one at that shape; the flagship's
-   Mbit/s and per-stage split, the coded-AWGN link's Mbit/s.
+7. the same link with ``cn_schedule="layered"`` on the lifted engine
+   (``engine="pallas"``), 10 iterations, at 8 dB: its band, one K3
+   launch per decoder call;
+8. times (CUDA events, warm-up excluded) every kernel variant against
+   its plain version at the flagship's n=12288 x 2048 (BP-20 flooding,
+   layered-10) and K1 at the link's n=2048 x 2000, each output first
+   held identical to the plain one at that shape; the flagship's Mbit/s
+   and per-stage split, the coded-AWGN link's Mbit/s;
+9. runs the decoder-kernel tuning sweep
+   (``python -m sionna_tpu_torch.tools.ldpc_tune --quick``), the entry
+   point of the bf16 and ratio variants: each launched, hard-decision
+   checksums printed, and the bf16 flip rate against f32;
+10. runs the generic-code link (the 802.11n LDPC code n=648 of
+    ``load_parity_check_examples(4)``, ``pcm2gm`` -> ``LinearEncoder``,
+    BPSK, AWGN, ``LDPCBPDecoder`` boxplus-phi BP-20 on the segment
+    engine, batch 10000) through ``sim_ber`` at Eb/N0 1.5 and 2 dB:
+    BLER bands from a JAX run of the same link, no lifted kernel
+    launched;
+11. runs the quick-start link of phase 5 with ``engine="segment"``: the
+    phase-5 bands, and its ms per decoder call beside K1's;
+12. takes three SGD steps of weighted BP (``WeightedBPCallback`` weights
+    on the v2c messages of the link's decoder, segment engine, BCE loss)
+    with every tensor on the card: finite loss and gradients.
 
-Prints the kernels' JSON line (``ms``/``plain_ms`` at the entry's
-``shape``), the card again, and last
+Prints the kernels' JSON line (one entry per kernel variant, ``ms`` /
+``plain_ms`` at the entry's ``shape``), the card again, and last
 ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
 Run from the repository root: ``python3 chip_smoke.py``.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -47,19 +69,44 @@ from sionna_tpu_torch.phy.channel import OFDMChannel
 from sionna_tpu_torch.phy.channel.tr38901 import TDL
 from sionna_tpu_torch.phy.fec.interleaving import (Deinterleaver,
                                                    RowColumnInterleaver)
-from sionna_tpu_torch.phy.fec.ldpc import LDPC5GDecoder, LDPC5GEncoder
+from sionna_tpu_torch.phy.fec.ldpc import (LDPC5GDecoder, LDPC5GEncoder,
+                                           LDPCBPDecoder, WeightedBPCallback)
 from sionna_tpu_torch.phy.fec.ldpc.decoding import (LAYERED_BP_KERNEL,
                                                     LIFTED_BP_KERNEL,
                                                     layered_bp_cuda,
                                                     lifted_bp_cuda)
+from sionna_tpu_torch.phy.fec.linear import LinearEncoder
+from sionna_tpu_torch.phy.fec.utils import load_parity_check_examples, pcm2gm
 from sionna_tpu_torch.phy.mimo import StreamManagement
 from sionna_tpu_torch.phy.ofdm import (LMMSEEqualizer, LSChannelEstimator,
                                        ResourceGrid, ResourceGridMapper)
 from sionna_tpu_torch.phy.utils import ebnodb2no, sim_ber
+from sionna_tpu_torch.tools import ldpc_tune
 
 LINK = dict(k=1024, n=2048, nbps=4, batch=2000, num_iter=20)
 FLAGSHIP = dict(batch=2048, nbps=4, rate=0.5, mc_iter=8)
+GENERIC = dict(pcm_id=4, batch=10000, mc_iter=10, num_iter=20)
 KERNELS = (LIFTED_BP_KERNEL, LAYERED_BP_KERNEL)
+_DEC = "sionna_tpu/phy/fec/ldpc/decoding.py"
+# Every kernel variant: (name in the kernels line, kernel, variant as
+# the wrapper counts it, layered, knobs, TPU code it replaces)
+VARIANTS = [
+    ("ldpc_lifted_bp", LIFTED_BP_KERNEL, "f32", False, {},
+     LIFTED_BP_KERNEL.replaces),
+    ("ldpc_lifted_bp_bf16", LIFTED_BP_KERNEL, "bf16", False,
+     dict(storage_dtype=torch.bfloat16), f"{_DEC}:1141"),
+    ("ldpc_lifted_bp_ratio", LIFTED_BP_KERNEL, "f32+ratio", False,
+     dict(atanh_form="ratio"), f"{_DEC}:880"),
+    ("ldpc_layered_bp", LAYERED_BP_KERNEL, "f32", True, {},
+     LAYERED_BP_KERNEL.replaces),
+    ("ldpc_layered_bp_bf16", LAYERED_BP_KERNEL, "bf16", True,
+     dict(storage_dtype=torch.bfloat16), f"{_DEC}:1195"),
+]
+# The tuning sweep's row of each variant
+SWEEP_ROWS = {"ldpc_lifted_bp": "K1 f32", "ldpc_lifted_bp_bf16": "K1 bf16",
+              "ldpc_lifted_bp_ratio": "K1 f32 ratio",
+              "ldpc_layered_bp": "K3 layered f32",
+              "ldpc_layered_bp_bf16": "K3 layered bf16"}
 
 # Flagship BLER bands from the JAX package's run of the same link on the
 # CPU (bench._flagship_step with ldpc_engine="lifted", one block per key,
@@ -70,13 +117,26 @@ KERNELS = (LIFTED_BP_KERNEL, LAYERED_BP_KERNEL)
 FLAGSHIP_JAX = {("flooding", 8.0): (12171, 24576),
                 ("flooding", 5.0): (8192, 8192),
                 ("layered", 8.0): (13291, 24576)}
+# Generic-code link BLER (codeword errors) from the JAX package's run of
+# the same link on the CPU (BinarySource, LinearEncoder(pcm2gm(pcm)),
+# Mapper/Demapper("app", "pam", 1), AWGN, LDPCBPDecoder(pcm, num_iter=20),
+# batch 10000, keys PRNGKey(1000 + i) for i < 20): (block errors, blocks)
+GENERIC_JAX = {("generic", 1.5): (27875, 200000),
+               ("generic", 2.0): (3657, 200000)}
 
 
 def bler_band(schedule, ebno_db):
-    errors, blocks = FLAGSHIP_JAX[(schedule, ebno_db)]
+    """The JAX estimate +- 5 standard errors of the difference between
+    it and this script's estimate, at a rate at least one block away
+    from 0 and 1."""
+    if schedule == "generic":
+        errors, blocks = GENERIC_JAX[(schedule, ebno_db)]
+        n_port = GENERIC["mc_iter"] * GENERIC["batch"]
+    else:
+        errors, blocks = FLAGSHIP_JAX[(schedule, ebno_db)]
+        n_port = FLAGSHIP["mc_iter"] * FLAGSHIP["batch"]
     p = errors / blocks
     q = min(max(p, 1 / blocks), 1 - 1 / blocks)
-    n_port = FLAGSHIP["mc_iter"] * FLAGSHIP["batch"]
     half = 5 * (q * (1 - q) * (1 / blocks + 1 / n_port)) ** 0.5
     return max(p - half, 0.0), min(p + half, 1.0)
 
@@ -91,7 +151,39 @@ def card_line():
 
 def reset_launches():
     for kern in KERNELS:
-        kern.launches = 0
+        kern.reset()
+
+
+def launches_of(name, kern, variant):
+    return {"name": name, "variant": variant,
+            "launches": kern.variant_launches.get(variant, 0)}
+
+
+def variant_calls(name, lift):
+    """(kernel call, plain call) of variant ``name`` on ``lift``; each
+    takes (LLRs, iterations)."""
+    _, _, _, layered, knobs, _ = next(v for v in VARIANTS if v[0] == name)
+    if layered:
+        return (lambda x, it: layered_bp_cuda(lift, x, it, **knobs),
+                lambda x, it: lift.decode_layered(x, it, **knobs))
+    return (lambda x, it: lifted_bp_cuda(lift, x, it, **knobs),
+            lambda x, it: lift.decode(x, it, **knobs))
+
+
+def ptxas_report(kern):
+    """One line per compiled kernel variant: its template arguments and
+    ptxas's registers, stack and spill figures."""
+    lines, entry = [], None
+    for line in kern.build_log.splitlines():
+        m = re.search(r"Compiling entry function '.*?_kernelI(.*?)EEv", line)
+        if m:
+            entry = (m.group(1).replace("13__nv_bfloat16", "bf16")
+                     .replace("Li0E", ",log1p").replace("Li1E", ",ratio"))
+            entry = "f32" + entry[1:] if entry.startswith("f") else entry
+        elif entry and ("registers" in line or "spill" in line):
+            lines.append(f"{kern.name}<{entry}>: {line.split(':', 1)[-1]}"
+                         .strip())
+    return lines
 
 
 def noisy_llrs(enc, batch, ebno_db, gen):
@@ -125,14 +217,16 @@ def assert_identical(got, want, what):
 
 
 def check_kernel_against_plain(dev, layered):
-    """Phases 3 and 4: a kernel against its plain version on the card,
-    for every check-node rule; the marginals must be identical
-    (tolerance 0). Both do the same f32 operations in the same order,
-    and the kernels' tanhf/log1pf (no fast math) are the functions
-    torch's CUDA tanh/log1p call. Returns max |kernel - plain| (0)."""
+    """Phases 3 and 4: each variant of a kernel against its plain
+    version on the card, for every check-node rule; the marginals must
+    be identical (tolerance 0). Both do the same f32 operations in the
+    same order and round to bf16 at the same points (nearest even), and
+    the kernels' tanhf/log1pf/logf and IEEE division (no fast math) are
+    what torch's CUDA tanh/log1p/log/div compute. Returns {variant name:
+    max |kernel - plain|} (0)."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    max_err = 0.0
-    kernel = layered_bp_cuda if layered else lifted_bp_cuda
+    names = [v[0] for v in VARIANTS if v[3] == layered]
+    max_err = dict.fromkeys(names, 0.0)
     iters = (0, 1, 10) if layered else (0, 1, 20)
     # (k, n, nbps, batch, converging / non-converging Eb/N0 in dB); the
     # plain layered decode launches ~50 small ops per base edge and row,
@@ -143,34 +237,39 @@ def check_kernel_against_plain(dev, layered):
     for k, n, nbps, batch, snrs in codes:
         enc = LDPC5GEncoder(k, n, num_bits_per_symbol=nbps, device=dev)
         for cn in ("boxplus", "minsum", "offset-minsum"):
-            dec = LDPC5GDecoder(enc, cn_update=cn, device=dev)
-            plain = dec.lifted.decode_layered if layered \
-                else dec.lifted.decode
+            dec = LDPC5GDecoder(enc, cn_update=cn, engine="lifted",
+                                device=dev)
             for ebno_db in snrs:
                 b, llr = noisy_llrs(enc, batch, ebno_db, gen)
                 llr_int = dec.recover_llrs(llr)
-                for it in iters:
-                    got = kernel(dec.lifted, llr_int, it)
-                    want = plain(llr_int, it)
-                    err = assert_identical(
-                        got, want, f"({k},{n}) {cn} {ebno_db} dB {it} iters")
-                    max_err = max(max_err, err)
+                for name in names:
+                    kernel, plain = variant_calls(name, dec.lifted)
+                    errs = []
+                    for it in iters:
+                        got = kernel(llr_int, it)
+                        errs.append(assert_identical(
+                            got, plain(llr_int, it),
+                            f"{name} ({k},{n}) {cn} {ebno_db} dB {it} "
+                            "iters"))
+                    max_err[name] = max(max_err[name], *errs)
                     # classic convention: a negative marginal decides 1
                     ber = float(((got[:, :k] < 0).float() != b).float()
                                 .mean())
-                    print(f"  ({k},{n}) {cn:13s} Eb/N0 {ebno_db:4.1f} dB "
-                          f"iters {it:2d}: max|kernel-plain| {err:.3e} "
-                          f"(info BER {ber:.2e})")
+                    print(f"  {name:21s} ({k},{n}) {cn:13s} Eb/N0 "
+                          f"{ebno_db:4.1f} dB iters {iters}: "
+                          f"max|kernel-plain| {max(errs):.3e} (info BER "
+                          f"{ber:.2e} after {iters[-1]})")
     return max_err
 
 
-def make_link(dev):
+def make_link(dev, engine="auto"):
     k, n, nbps = LINK["k"], LINK["n"], LINK["nbps"]
     src = BinarySource(device=dev)
     enc = LDPC5GEncoder(k, n, num_bits_per_symbol=nbps, device=dev)
     mapper = Mapper("qam", nbps, device=dev)
     demapper = Demapper("app", "qam", nbps, device=dev)
-    dec = LDPC5GDecoder(enc, num_iter=LINK["num_iter"], device=dev)
+    dec = LDPC5GDecoder(enc, num_iter=LINK["num_iter"], engine=engine,
+                        device=dev)
     awgn = AWGN(device=dev)
     seen = {"calls": 0, "devices": set()}
 
@@ -187,6 +286,68 @@ def make_link(dev):
         return b, b_hat
 
     return run, dec, seen
+
+
+def make_generic_link(dev):
+    """Phase 10's link: the n=648 802.11n LDPC code (example code 4),
+    its generator matrix by pcm2gm, BPSK over AWGN, APP demapping and
+    the generic BP decoder (boxplus-phi, segment engine). Returns (run,
+    seen); run gives (codeword, estimated codeword)."""
+    pcm, k, n, _ = load_parity_check_examples(GENERIC["pcm_id"])
+    src = BinarySource(device=dev)
+    enc = LinearEncoder(pcm2gm(pcm), device=dev)
+    mapper = Mapper("pam", 1, device=dev)
+    demapper = Demapper("app", "pam", 1, device=dev)
+    awgn = AWGN(device=dev)
+    dec = LDPCBPDecoder(pcm, num_iter=GENERIC["num_iter"], device=dev)
+    seen = {"calls": 0, "devices": set()}
+
+    def run(batch_size, ebno_db):
+        c = enc(src([batch_size, k]))
+        no = ebnodb2no(ebno_db, 1, k / n).to(dev)
+        llr = demapper(awgn(mapper(c), no), no)
+        c_hat = dec(llr)
+        seen["calls"] += 1
+        for t in (c, no, llr, c_hat):
+            seen["devices"].add(t.device.type)
+        return c, c_hat
+
+    return run, seen
+
+
+def weighted_bp_steps(dev, steps, gen):
+    """Phase 12: ``steps`` SGD steps on per-edge v2c weights of the
+    link's 5G decoder (callbacks take it to the segment engine), BP-10
+    soft output, binary cross-entropy against the sent info bits at
+    Eb/N0 2 dB. Returns the losses; raises unless every loss and
+    gradient is finite and every tensor is on the card."""
+    k, n, nbps = LINK["k"], LINK["n"], LINK["nbps"]
+    enc = LDPC5GEncoder(k, n, num_bits_per_symbol=nbps, device=dev)
+    probe = LDPC5GDecoder(enc, device=dev)
+    cb = WeightedBPCallback(probe.num_edges, device=dev)
+    dec = LDPC5GDecoder(enc, hard_out=False, num_iter=10,
+                        v2c_callbacks=[cb], device=dev)
+    if dec.lifted is not None:
+        raise AssertionError("weighted BP did not take the segment engine")
+    opt = torch.optim.SGD(dec.parameters(), lr=1.0)
+    losses, devices = [], set()
+    for _ in range(steps):
+        b, llr = noisy_llrs(enc, 256, 2.0, gen)
+        opt.zero_grad()
+        loss = torch.nn.functional.binary_cross_entropy_with_logits(
+            dec(llr), b)
+        loss.backward()
+        for t in (b, llr, loss, cb.weights, cb.weights.grad):
+            devices.add(t.device.type)
+        if not (bool(torch.isfinite(loss))
+                and bool(torch.isfinite(cb.weights.grad).all())):
+            raise AssertionError(f"weighted BP: loss {float(loss)}, "
+                                 "gradient not finite")
+        opt.step()
+        losses.append(loss.item())
+    if devices != {"cuda"}:
+        raise AssertionError(f"weighted BP tensors on {devices}")
+    return losses
 
 
 class Flagship:
@@ -305,6 +466,26 @@ def in_turns(ker, plain, ker_reps, plain_reps):
     return (k1, k2), (p1, p2)
 
 
+def check_link_bands(bler, what):
+    """The coded-AWGN link's BLER bands: [0.4, 0.8] at 3 dB, <= 0.02 at
+    4 dB."""
+    if not 0.4 <= bler[0] <= 0.8:
+        raise AssertionError(f"{what}: BLER at 3 dB {bler[0]} outside "
+                             "[0.4, 0.8]")
+    if not bler[1] <= 0.02:
+        raise AssertionError(f"{what}: BLER at 4 dB {bler[1]} above 0.02")
+
+
+def check_no_kernel(phase, devices):
+    """A segment-engine phase: every tensor on the card, and no lifted
+    kernel launched since the counts were set to 0."""
+    if devices != {"cuda"}:
+        raise AssertionError(f"{phase} tensors on {devices}")
+    if any(kern.launches for kern in KERNELS):
+        raise AssertionError(f"{phase} launched a lifted kernel: "
+                             f"{[k.variant_launches for k in KERNELS]}")
+
+
 def run_flagship(link, schedule, snrs):
     """Phases 6 and 7: the flagship through sim_ber with every launch
     count at 0 just before and read just after. Returns the launches."""
@@ -314,7 +495,7 @@ def run_flagship(link, schedule, snrs):
                       max_mc_iter=FLAGSHIP["mc_iter"], early_stop=False,
                       verbose=True)
     torch.cuda.synchronize()
-    launches = {kern.name: kern.launches for kern in KERNELS}
+    launches = {kern.name: dict(kern.variant_launches) for kern in KERNELS}
     bler = bler.tolist()
     print(f"    {schedule}: BLER {bler}, {link.calls} decoder calls, "
           f"launches {launches}, devices {sorted(link.devices)}, "
@@ -347,20 +528,20 @@ def main():
     print(f"[2] built {', '.join(k.source.name for k in KERNELS)} in "
           f"{time.perf_counter() - t0:.2f} s")
     for kern in KERNELS:
-        for line in kern.build_log.splitlines():
-            if "registers" in line or "spill" in line or "lmem" in line:
-                print(f"    ptxas {kern.name}: {line.strip()}")
+        for line in ptxas_report(kern):
+            print(f"    ptxas {line}")
 
     max_err = {}
     for phase, kern, layered in (("[3]", LIFTED_BP_KERNEL, False),
                                  ("[4]", LAYERED_BP_KERNEL, True)):
-        print(f"{phase} {kern.name} vs plain torch on the card")
-        before = kern.launches
-        max_err[kern.name] = check_kernel_against_plain(dev, layered)
-        if kern.launches <= before:
-            raise AssertionError(f"{phase} did not launch {kern.name}")
+        print(f"{phase} {kern.name} variants vs plain torch on the card")
+        kern.reset()
+        max_err.update(check_kernel_against_plain(dev, layered))
+        for name, k, variant, *_ in VARIANTS:
+            if k is kern and not k.variant_launches.get(variant):
+                raise AssertionError(f"{phase} did not launch {name}")
         print(f"    all cases identical; max |kernel-plain| "
-              f"{max_err[kern.name]:.3e} (tolerance 0)")
+              f"{max(max_err.values()):.3e} (tolerance 0)")
 
     print("[5] coded-AWGN link through sim_ber on the card")
     run, dec, seen = make_link(dev)
@@ -370,15 +551,12 @@ def main():
                         max_mc_iter=10, early_stop=False, verbose=True)
     torch.cuda.synchronize()
     link_s = time.perf_counter() - t0
-    launches = LIFTED_BP_KERNEL.launches
+    launches = LIFTED_BP_KERNEL.variant_launches.get("f32", 0)
     ber, bler = ber.tolist(), bler.tolist()
     print(f"    BER {ber}, BLER {bler}, {seen['calls']} decoder calls, "
           f"{launches} kernel launches, devices {sorted(seen['devices'])}, "
           f"{link_s:.2f} s")
-    if not 0.4 <= bler[0] <= 0.8:
-        raise AssertionError(f"BLER at 3 dB {bler[0]} outside [0.4, 0.8]")
-    if not bler[1] <= 0.02:
-        raise AssertionError(f"BLER at 4 dB {bler[1]} above 0.02")
+    check_link_bands(bler, "coded-AWGN link")
     if seen["devices"] != {"cuda"}:
         raise AssertionError(f"link tensors on {seen['devices']}")
     if launches == 0 or launches != seen["calls"]:
@@ -388,23 +566,25 @@ def main():
     print("[6] flagship link (BP-20 flooding) through sim_ber on the card")
     flood = Flagship(dev, num_iter=20)
     flood_launches = run_flagship(flood, "flooding", [8.0, 5.0])
-    if (flood_launches[LIFTED_BP_KERNEL.name] != flood.calls
-            or flood_launches[LAYERED_BP_KERNEL.name] != 0):
+    if flood_launches != {LIFTED_BP_KERNEL.name: {"f32": flood.calls},
+                          LAYERED_BP_KERNEL.name: {}}:
         raise AssertionError(f"{flood_launches} for {flood.calls} "
                              "flooding decoder calls")
 
-    print("[7] flagship link (layered, 10 iterations) through sim_ber")
-    layered = Flagship(dev, num_iter=10, cn_schedule="layered")
+    print("[7] flagship link (layered, 10 iterations, lifted engine) "
+          "through sim_ber")
+    layered = Flagship(dev, num_iter=10, cn_schedule="layered",
+                       engine="pallas")
     layered_launches = run_flagship(layered, "layered", [8.0])
-    if (layered_launches[LAYERED_BP_KERNEL.name] != layered.calls
-            or layered_launches[LIFTED_BP_KERNEL.name] != 0):
+    if layered_launches != {LIFTED_BP_KERNEL.name: {},
+                            LAYERED_BP_KERNEL.name: {"f32": layered.calls}}:
         raise AssertionError(f"{layered_launches} for {layered.calls} "
                              "layered decoder calls")
 
     print(f"[8] times on {card} (warm-up excluded)")
-    # both decoders alone at the flagship's code, batch 2048: K1 BP-20
-    # flooding, K3 layered-10 (the setting docs/PERFORMANCE.md compares),
-    # and K1 at the coded-AWGN link's code and batch; each kernel's
+    # every kernel variant alone at the flagship's code, batch 2048:
+    # BP-20 flooding, layered-10 (the setting docs/PERFORMANCE.md
+    # compares), and K1 at the coded-AWGN link's code and batch; each
     # output is first held against its plain version at that shape
     gen = torch.Generator(device=dev).manual_seed(2)
     llr_big = flood.dec.recover_llrs(
@@ -412,29 +592,25 @@ def main():
     llr_link = dec.recover_llrs(
         noisy_llrs(dec.encoder, LINK["batch"], 3.0, gen)[1])
     times, shapes = {}, {}
-    for kern, lift, llr, it, shape in (
-            (LIFTED_BP_KERNEL, flood.dec.lifted, llr_big, 20,
-             "n=12288 x 2048, BP-20 boxplus"),
-            (LAYERED_BP_KERNEL, flood.dec.lifted, llr_big, 10,
-             "n=12288 x 2048, layered-10 boxplus"),
-            (LIFTED_BP_KERNEL, dec.lifted, llr_link, 20,
-             "n=2048 x 2000, BP-20 boxplus")):
-        if kern is LAYERED_BP_KERNEL:
-            ker, plain = layered_bp_cuda, lift.decode_layered
-        else:
-            ker, plain = lifted_bp_cuda, lift.decode
-        err = assert_identical(ker(lift, llr, it), plain(llr, it),
-                               f"{kern.name} at {shape}")
-        max_err[kern.name] = max(max_err[kern.name], err)
-        (k1, k2), (p1, p2) = in_turns(lambda: ker(lift, llr, it),
+    cases = [(name, flood.dec.lifted, llr_big, 10 if layered else 20,
+              f"n=12288 x 2048, {'layered-10' if layered else 'BP-20'} "
+              "boxplus") for name, _, _, layered, _, _ in VARIANTS]
+    cases.append(("ldpc_lifted_bp", dec.lifted, llr_link, 20,
+                  "n=2048 x 2000, BP-20 boxplus"))
+    for name, lift, llr, it, shape in cases:
+        ker, plain = variant_calls(name, lift)
+        err = assert_identical(ker(llr, it), plain(llr, it),
+                               f"{name} at {shape}")
+        max_err[name] = max(max_err[name], err)
+        (k1, k2), (p1, p2) = in_turns(lambda: ker(llr, it),
                                       lambda: plain(llr, it), 10, 2)
-        print(f"    {kern.name}, {shape}: max|kernel-plain| {err:.3e}; "
+        print(f"    {name}, {shape}: max|kernel-plain| {err:.3e}; "
               f"kernel {k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / "
               f"{p2:.3f} ms per call")
-        if kern.name not in times:  # the kernels line: flagship shape
-            times[kern.name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-            shapes[kern.name] = shape
-    ker_ms, plain_ms = times[LIFTED_BP_KERNEL.name]
+        if name not in times:  # the kernels line: flagship shape
+            times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+            shapes[name] = shape
+    ker_ms, plain_ms = times["ldpc_lifted_bp"]
     print(f"    ldpc_bp_codeword_iterations_per_s: kernel "
           f"{2048 * 20 / ker_ms:.3f} kiter/s, plain "
           f"{2048 * 20 / plain_ms:.3f} kiter/s "
@@ -465,19 +641,87 @@ def main():
           f"(k=1024, n=2048, 16-QAM, BP-20, batch 2000, Eb/N0 4 dB, "
           f"{dt / n_iters * 1e3:.3f} ms per MC iteration)")
 
-    main_launches = {LIFTED_BP_KERNEL.name: flood_launches,
-                     LAYERED_BP_KERNEL.name: layered_launches}
+    print("[9] decoder-kernel tuning sweep "
+          "(python -m sionna_tpu_torch.tools.ldpc_tune --quick)")
+    reset_launches()
+    sweep = ldpc_tune.sweep(quick=True)
+    torch.cuda.synchronize()
+    main_launches = {
+        name: kern.variant_launches.get(variant, 0)
+        for name, kern, variant, *_ in VARIANTS}
+    main_launches.update({"ldpc_lifted_bp": flood_launches[
+        LIFTED_BP_KERNEL.name]["f32"], "ldpc_layered_bp": layered_launches[
+            LAYERED_BP_KERNEL.name]["f32"]})
+    print(f"    launches {main_launches}")
+    for name, row in SWEEP_ROWS.items():
+        if row not in sweep or not main_launches[name]:
+            raise AssertionError(f"the sweep did not launch {name}")
+    lifted = ldpc_tune.flagship_lifted(dev)
+    llr = ldpc_tune.probe_llrs(lifted)
+    with torch.no_grad():
+        hard = {row[0]: row[3](llr) < 0
+                for row in ldpc_tune.variants(lifted)}
+    for label, ref in (("K1 f32 ratio", "K1 f32"), ("K1 bf16", "K1 f32"),
+                       ("K3 layered bf16", "K3 layered f32")):
+        flips = float((hard[label] != hard[ref]).float().mean())
+        print(f"    hard-decision flip rate of {label} against {ref} on "
+              f"the probe LLRs: {flips:.3e}")
+
+    print("[10] generic-code link (n=648 802.11n LDPC, LDPCBPDecoder "
+          "boxplus-phi BP-20, segment engine) through sim_ber")
+    generic, gseen = make_generic_link(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    _, gbler = sim_ber(generic, [1.5, 2.0], batch_size=GENERIC["batch"],
+                       max_mc_iter=GENERIC["mc_iter"], early_stop=False,
+                       verbose=True)
+    torch.cuda.synchronize()
+    gbler = gbler.tolist()
+    print(f"    BLER {gbler}, {gseen['calls']} decoder calls, devices "
+          f"{sorted(gseen['devices'])}, {time.perf_counter() - t0:.2f} s")
+    for snr, p in zip([1.5, 2.0], gbler):
+        lo, hi = bler_band("generic", snr)
+        if not lo <= p <= hi:
+            raise AssertionError(f"generic-code BLER at {snr} dB {p} "
+                                 f"outside [{lo}, {hi}]")
+    check_no_kernel("[10]", gseen["devices"])
+
+    print("[11] coded-AWGN link with engine=\"segment\" through sim_ber")
+    srun, sdec, sseen = make_link(dev, engine="segment")
+    reset_launches()
+    _, sbler = sim_ber(srun, [3.0, 4.0], batch_size=LINK["batch"],
+                       max_mc_iter=10, early_stop=False, verbose=True)
+    torch.cuda.synchronize()
+    sbler = sbler.tolist()
+    print(f"    BLER {sbler}, {sseen['calls']} decoder calls, devices "
+          f"{sorted(sseen['devices'])}")
+    check_link_bands(sbler, "segment-engine link")
+    check_no_kernel("[11]", sseen["devices"])
+    _, llr = noisy_llrs(sdec.encoder, LINK["batch"], 3.0, gen)
+    with torch.no_grad():
+        (s1, s2), (k1, k2) = in_turns(lambda: sdec(llr), lambda: dec(llr),
+                                      10, 10)
+    print(f"    decoder call, n=2048 x 2000, BP-20: segment engine "
+          f"(boxplus-phi) {s1:.3f} / {s2:.3f} ms, K1 (boxplus) {k1:.3f} / "
+          f"{k2:.3f} ms")
+
+    print("[12] weighted BP: 3 SGD steps through the segment engine")
+    reset_launches()
+    losses = weighted_bp_steps(dev, 3, gen)
+    print(f"    losses {losses}")
+    check_no_kernel("[12]", {"cuda"})
+
     print(json.dumps({"kernels": [{
-        "name": kern.name,
+        "name": name,
         "route": "cuda",
         "source": "sionna_tpu_torch/csrc/" + kern.source.name,
-        "replaces": kern.replaces,
-        "launches": main_launches[kern.name][kern.name],
-        "max_abs_err": max_err[kern.name],
-        "shape": shapes[kern.name],
-        "ms": times[kern.name][0],
-        "plain_ms": times[kern.name][1],
-    } for kern in KERNELS]}))
+        "replaces": replaces,
+        "launches": main_launches[name],
+        "max_abs_err": max_err[name],
+        "shape": shapes[name],
+        "ms": times[name][0],
+        "plain_ms": times[name][1],
+    } for name, kern, _, _, _, replaces in VARIANTS]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

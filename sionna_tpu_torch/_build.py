@@ -39,8 +39,9 @@ class CudaKernel:
     kernel it replaces, its C entry points, and a count of launches.
 
     ``functions`` maps each exported C function to ``(argtypes,
-    restype)``. The wrapper that launches the kernel adds one to
-    ``launches`` per launch, and nowhere else.
+    restype)``. The wrapper that launches the kernel calls
+    :meth:`count` once per launch, and nowhere else: it adds one to
+    ``launches`` and to the launch's variant in ``variant_launches``.
     """
 
     def __init__(self, name, source, replaces, functions):
@@ -50,7 +51,19 @@ class CudaKernel:
         self._functions = functions
         self._lib = None
         self.launches = 0
+        self.variant_launches = {}
         self.build_log = None
+
+    def count(self, variant):
+        """Counts one launch of ``variant`` (e.g. "f32", "bf16")."""
+        self.launches += 1
+        self.variant_launches[variant] = \
+            self.variant_launches.get(variant, 0) + 1
+
+    def reset(self):
+        """Sets every launch count to 0."""
+        self.launches = 0
+        self.variant_launches = {}
 
     def build(self):
         """Compiles the source (unless a library of the same source and

@@ -1,4 +1,5 @@
 """Forward error correction (counterpart of ``sionna_tpu.phy.fec``; the
-port has 5G LDPC and the row-column interleaver)."""
+port has LDPC, the linear codes, the FEC utilities and the row-column
+interleaver)."""
 
-from . import interleaving, ldpc
+from . import interleaving, ldpc, linear, utils

@@ -1,25 +1,39 @@
-"""5G LDPC belief-propagation decoding in the lifted domain.
+"""LDPC belief-propagation decoding.
 
-PyTorch counterpart of the lifted engine of
-``sionna_tpu/phy/fec/ldpc/decoding.py``: :class:`LDPC5GDecoder` with the
-5G rate recovery, :class:`LDPC5GLiftedBP` (tables and the plain torch
-decodes, flooding and layered) and the wrappers of the two hand-written
-CUDA kernels that replace the Pallas kernel ``_lifted_pallas_decode``:
-:func:`lifted_bp_cuda` (flooding, ``csrc/ldpc_lifted_bp.cu``) and
-:func:`layered_bp_cuda` (layered, ``csrc/ldpc_layered_bp.cu``).
+PyTorch counterpart of ``sionna_tpu/phy/fec/ldpc/decoding.py``:
 
-Which one runs depends only on where the LLRs lie: a CPU tensor goes
-through the plain decode, a CUDA tensor through the kernel. A CUDA
-tensor never falls back to the plain decode; if the kernel cannot build
-or launch, the call raises.
+- the edge-domain update functions (``cn_update_*``, ``vn_update_sum``
+  and the identity updates) and :class:`LDPCBPDecoder`, BP over the edge
+  list of any parity-check matrix with the "segment" engine (segment
+  sums and minima as ``index_add``/``scatter_reduce`` over the edge
+  axis) or the "matmul" engine (one-hot incidence products), flooding
+  or layered, with callbacks, state round-tripping and bf16 messages.
+  Both engines are plain torch, so autograd runs through them;
+- :class:`LDPC5GDecoder`, its 5G subclass with rate recovery, which
+  takes the lifted engine for the built-in flooding updates (and on
+  request for the layered schedule) and the segment engine otherwise;
+- :class:`LDPC5GLiftedBP`, the lifted (block-circulant) engine: the
+  plain torch decodes, flooding and layered, and the wrappers of the two
+  hand-written CUDA kernels that replace the Pallas kernel
+  ``_lifted_pallas_decode``: :func:`lifted_bp_cuda` (flooding,
+  ``csrc/ldpc_lifted_bp.cu``) and :func:`layered_bp_cuda` (layered,
+  ``csrc/ldpc_layered_bp.cu``), each with the Pallas kernel's bf16
+  message storage and (flooding) its ``ratio`` form of the boxplus
+  magnitude.
 
-LLRs follow the package logit convention log(P1/P0); the BP engine
-works in the classic log(P0/P1) convention (input and output negated).
+Which lifted decode runs depends only on where the LLRs lie: a CPU
+tensor goes through the plain decode, a CUDA tensor through the kernel.
+A CUDA tensor never falls back to the plain decode; if the kernel cannot
+build or launch, the call raises.
+
+LLRs follow the package logit convention log(P1/P0); the BP engines
+work in the classic log(P0/P1) convention (input and output negated).
 """
 
 import ctypes
 
 import numpy as np
+import scipy.sparse as sp_sparse
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -28,13 +42,13 @@ from ...block import Block
 from ...._build import CudaKernel
 from .encoding import LDPC5GEncoder
 
-__all__ = ["LDPC5GDecoder", "LDPC5GLiftedBP", "lifted_bp_cuda",
+__all__ = ["LDPCBPDecoder", "LDPC5GDecoder", "cn_update_minsum",
+           "cn_update_offset_minsum", "cn_update_tanh", "cn_update_phi",
+           "vn_update_sum", "cn_node_update_identity",
+           "vn_node_update_identity", "LDPC5GLiftedBP", "lifted_bp_cuda",
            "layered_bp_cuda", "LIFTED_BP_KERNEL", "LAYERED_BP_KERNEL"]
 
-_ROADMAP_SEGMENT = ("the segment/matmul BP engines (generic "
-                    "parity-check matrices, callbacks, return_state) are "
-                    "not ported yet: see ROADMAP.md, queue 1 item 5")
-_CN_UPDATES = ("minsum", "offset-minsum", "boxplus", "boxplus-phi")
+_LIFTED_CN_UPDATES = ("minsum", "offset-minsum", "boxplus", "boxplus-phi")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,8 +60,8 @@ LIFTED_BP_KERNEL = CudaKernel(
     source="ldpc_lifted_bp.cu",
     replaces="sionna_tpu/phy/fec/ldpc/decoding.py:1106",
     functions={
-        "sionna_ldpc_lifted_bp": ([_P] * 10 + [_I] * 6 + [_F, _F, _I, _P],
-                                  _I),
+        "sionna_ldpc_lifted_bp": ([_P] * 11 + [_I] * 6 + [_F, _F]
+                                  + [_I] * 3 + [_P], _I),
         "sionna_ldpc_max_degree": ([], _I),
         "sionna_cuda_error_string": ([_I], ctypes.c_char_p),
     })
@@ -58,98 +72,387 @@ LAYERED_BP_KERNEL = CudaKernel(
     source="ldpc_layered_bp.cu",
     replaces="sionna_tpu/phy/fec/ldpc/decoding.py:1203",
     functions={
-        "sionna_ldpc_layered_bp": ([_P] * 8 + [_I] * 6 + [_F, _F, _I, _P],
-                                   _I),
+        "sionna_ldpc_layered_bp": ([_P] * 8 + [_I] * 6 + [_F, _F]
+                                   + [_I] * 2 + [_P], _I),
         "sionna_ldpc_max_degree": ([], _I),
         "sionna_cuda_error_string": ([_I], ctypes.c_char_p),
     })
 
 
-class LDPC5GDecoder(Block):
-    """5G NR LDPC decoder with rate recovery for an associated
-    :class:`LDPC5GEncoder`.
+# ----------------------------------------------------------------------
+# Edge-domain update functions.
+#
+# All cn_update_* functions have the signature
+#   (v2c [..., E], cn_idx [E], num_cns, llr_clipping) -> c2v [..., E]
+# and work in the classic log(P0/P1) convention. ``sorted_`` is the JAX
+# package's hint that cn_idx is sorted; the torch reductions do not need
+# it.
+# ----------------------------------------------------------------------
 
-    ``engine`` "auto", "lifted" and "pallas" all select the lifted
-    engine: the plain torch decode for CPU tensors, the CUDA kernel for
-    CUDA tensors. ``cn_update`` may be "boxplus" or "boxplus-phi" (both
-    the exact tanh rule), "minsum" or "offset-minsum" (offset 0.5);
-    ``cn_schedule`` "flooding" or "layered" (one layer per lifted base
-    row), with f32 (or, on the CPU, f64) messages. ``internal_precision``
-    may be None or "bf16"; as in the JAX package, the lifted engine does
-    not read it.
+def _segment_sum(x, idx, num_segments):
+    """Sums x [..., E] over the edges of each segment (idx [E]) ->
+    [..., num_segments]."""
+    return x.new_zeros(x.shape[:-1] + (num_segments,)).index_add(
+        -1, idx, x)
+
+
+def _segment_min(x, idx, num_segments):
+    """Minimum of x [..., E] over each segment; an empty segment reads
+    +inf, as ``jax.ops.segment_min``'s does."""
+    out = torch.full(x.shape[:-1] + (num_segments,), float("inf"),
+                     dtype=x.dtype, device=x.device)
+    return out.scatter_reduce(-1, idx.expand(x.shape), x, reduce="amin",
+                              include_self=False)
+
+
+def _take(x, idx):
+    return x.index_select(-1, idx)
+
+
+def _clip(x, llr_clipping):
+    if llr_clipping is None:
+        return x
+    return torch.clamp(x, -llr_clipping, llr_clipping)
+
+
+def _sign_product(v2c, cn_idx, num_cns):
+    """Extrinsic sign per edge: the product of the signs of the other
+    edges of its check node, from the parity of the count of negative
+    inputs (integers, as the JAX package counts)."""
+    neg = (v2c < 0).to(torch.int32)
+    ext_neg = _take(_segment_sum(neg, cn_idx, num_cns), cn_idx) - neg
+    return 1.0 - 2.0 * (ext_neg % 2).to(v2c.dtype)
+
+
+def _two_min(mag, cn_idx, num_cns):
+    """Per-edge extrinsic minimum of |v2c| over the other edges of the
+    same check node: the second distinct minimum for the unique
+    minimizer, the minimum otherwise (ties keep it)."""
+    big = torch.finfo(mag.dtype).max
+    m1_e = _take(_segment_min(mag, cn_idx, num_cns), cn_idx)
+    is_min = mag == m1_e
+    masked = torch.where(is_min, big, mag)
+    m2_e = _take(_segment_min(masked, cn_idx, num_cns), cn_idx)
+    cnt_e = _take(_segment_sum(is_min.to(torch.int32), cn_idx, num_cns),
+                  cn_idx)
+    return torch.where(is_min & (cnt_e == 1), m2_e, m1_e)
+
+
+def cn_update_minsum(v2c, cn_idx, num_cns, llr_clipping=None,
+                     sorted_=True):
+    """Min-sum check node update."""
+    ext = _two_min(torch.abs(v2c), cn_idx, num_cns)
+    return _clip(_sign_product(v2c, cn_idx, num_cns) * ext, llr_clipping)
+
+
+def cn_update_offset_minsum(v2c, cn_idx, num_cns, llr_clipping=None,
+                            offset=0.5, sorted_=True):
+    """Offset-corrected min-sum check node update."""
+    ext = _two_min(torch.abs(v2c), cn_idx, num_cns)
+    ext = torch.clamp(ext - offset, min=0.0)
+    return _clip(_sign_product(v2c, cn_idx, num_cns) * ext, llr_clipping)
+
+
+def cn_update_tanh(v2c, cn_idx, num_cns, llr_clipping=None, sorted_=True):
+    """Exact boxplus through the tanh rule, as sums of log|tanh(x/2)|
+    (floored at 1e-12), the extrinsic product clamped below 1."""
+    sign = _sign_product(v2c, cn_idx, num_cns)
+    eps = torch.tensor(1e-12, dtype=v2c.dtype, device=v2c.device)
+    logtanh = torch.log(torch.maximum(torch.tanh(torch.abs(v2c) / 2), eps))
+    ext = _take(_segment_sum(logtanh, cn_idx, num_cns), cn_idx) - logtanh
+    e = torch.clamp(torch.exp(ext), max=1 - 1e-7)
+    return _clip(sign * 2 * torch.atanh(e), llr_clipping)
+
+
+def _phi(x):
+    """phi(x) = -log(tanh(x/2)), self-inverse on x > 0."""
+    x = torch.clamp(x, 8.5e-8, 16.635532)
+    return -torch.log(torch.tanh(x / 2))
+
+
+def cn_update_phi(v2c, cn_idx, num_cns, llr_clipping=None, sorted_=True):
+    """Boxplus through sums of phi(|v2c|)."""
+    sign = _sign_product(v2c, cn_idx, num_cns)
+    ph = _phi(torch.abs(v2c))
+    ext = _take(_segment_sum(ph, cn_idx, num_cns), cn_idx) - ph
+    return _clip(sign * _phi(ext), llr_clipping)
+
+
+def _marginals(c2v, llr_ch, vn_idx, num_vns):
+    """Channel LLR plus the sum of the incoming messages of each
+    variable node, the messages added to the LLR in edge order: what
+    XLA computes for ``segment_sum(c2v) + llr_ch`` once it folds the
+    add into the scatter (it does inside every jitted decoder loop)."""
+    dtype = torch.result_type(c2v, llr_ch)
+    base = llr_ch.to(dtype).expand(c2v.shape[:-1] + (num_vns,))
+    return base.index_add(-1, vn_idx, c2v.to(dtype))
+
+
+def vn_update_sum(c2v, llr_ch, vn_idx, num_vns, llr_clipping=None):
+    """Variable node update: marginal = channel LLR + the sum of the
+    incoming messages; v2c = marginal minus the edge's own message.
+    Returns (v2c, marginals)."""
+    marg = _marginals(c2v, llr_ch, vn_idx, num_vns)
+    v2c = _take(marg, vn_idx) - c2v
+    return _clip(v2c, llr_clipping), _clip(marg, llr_clipping)
+
+
+def cn_node_update_identity(v2c, cn_idx, num_cns, llr_clipping=None,
+                            sorted_=True):
+    """Identity check node update, for testing message passing:
+    c2v = v2c."""
+    return _clip(v2c, llr_clipping)
+
+
+def vn_node_update_identity(c2v, llr_ch, vn_idx, num_vns,
+                            llr_clipping=None):
+    """Identity variable node update, for testing: passes the messages
+    through and returns the marginals as second output."""
+    marg = _marginals(c2v, llr_ch, vn_idx, num_vns)
+    return _clip(c2v, llr_clipping), _clip(marg, llr_clipping)
+
+
+_CN_UPDATES = {
+    "minsum": cn_update_minsum,
+    "offset-minsum": cn_update_offset_minsum,
+    "boxplus": cn_update_tanh,
+    "boxplus-phi": cn_update_phi,
+    "identity": cn_node_update_identity,
+}
+
+
+class LDPCBPDecoder(Block):
+    """Belief-propagation decoder for arbitrary parity-check matrices.
+
+    Input llr_ch [..., n] in the logit convention log(P(b=1)/P(b=0));
+    output soft LLRs (same convention) or hard bits of shape [..., n],
+    and with ``return_state`` also the last v2c messages [batch, E]
+    (logit convention), which ``msg_v2c`` takes back as a warm start of
+    the flooding schedule.
+
+    ``cn_update`` is "boxplus-phi", "boxplus", "minsum",
+    "offset-minsum", "identity" or a callable with the ``cn_update_*``
+    signature; ``vn_update`` "sum", "identity" or a callable.
+    ``cn_schedule`` is "flooding", "layered" (one check node per layer)
+    or a list of check-node index arrays, one per layer. Callbacks
+    ``cb(msg, it) -> msg`` run on the v2c messages before and on the c2v
+    messages after each flooding check-node update.
+    ``internal_precision="bf16"`` keeps the flooding messages in bf16.
+    ``engine="matmul"`` computes the built-in flooding updates with
+    one-hot incidence products (when E * max(C, V) <= 64e6); callables,
+    callbacks and larger codes use the segment engine.
     """
 
-    def __init__(self, encoder, cn_update="boxplus-phi",
-                 cn_schedule="flooding", hard_out=True,
-                 return_infobits=True, num_iter=20, llr_max=20.,
+    def __init__(self, pcm, cn_update="boxplus-phi", vn_update="sum",
+                 cn_schedule="flooding", hard_out=True, num_iter=20,
+                 llr_max=20., v2c_callbacks=None, c2v_callbacks=None,
                  return_state=False, internal_precision=None,
-                 engine="auto", precision=None, device=None):
+                 engine="segment", precision=None, device=None):
         super().__init__(precision=precision, device=device)
-        if not isinstance(encoder, LDPC5GEncoder):
-            raise TypeError("encoder must be of class LDPC5GEncoder.")
-        if engine in ("segment", "matmul"):
-            raise NotImplementedError(f"engine='{engine}': "
-                                      + _ROADMAP_SEGMENT)
-        if engine not in ("auto", "lifted", "pallas"):
-            raise ValueError("engine must be 'auto', 'lifted', 'pallas', "
-                             "'segment' or 'matmul'")
-        if isinstance(cn_schedule, (list, tuple, np.ndarray)):
-            raise NotImplementedError("custom CN schedules: "
-                                      + _ROADMAP_SEGMENT)
-        if cn_schedule not in ("flooding", "layered"):
-            raise ValueError(
-                "cn_schedule must be 'flooding', 'layered', or a "
-                "list of CN-index arrays")
         if internal_precision not in (None, "bf16"):
             raise ValueError("internal_precision must be None or 'bf16'")
-        if callable(cn_update):
-            raise NotImplementedError("custom CN updates: "
-                                      + _ROADMAP_SEGMENT)
-        if cn_update not in _CN_UPDATES:
-            raise ValueError(f"Unknown cn_update: {cn_update}")
-        if return_state:
-            raise ValueError(
-                "engine='lifted'/'pallas' does not keep per-edge "
-                "message state; use engine='segment' (or "
-                "engine='auto', which falls back automatically) "
-                "when return_state=True")
+        self._internal_precision = internal_precision
+        if engine not in ("segment", "matmul"):
+            raise ValueError("engine must be 'segment' or 'matmul'")
+        self._engine = engine
+        if isinstance(pcm, np.ndarray):
+            pcm = sp_sparse.csr_matrix(pcm)
+        elif not sp_sparse.issparse(pcm):
+            raise TypeError("Unsupported dtype of pcm.")
+        pcm = pcm.tocsr()
+        if not np.all(np.isin(pcm.data, [0, 1])):
+            raise ValueError("PC matrix must be binary.")
+        self._pcm = pcm
+        self._num_cns, self._num_vns = pcm.shape
+
+        coo = pcm.tocoo()
+        order = np.lexsort((coo.col, coo.row))  # row-major edge order
+        self._cn_idx = coo.row[order].astype(np.int64)
+        self._vn_idx = coo.col[order].astype(np.int64)
+        self._num_edges = len(coo.row)
+
         if not isinstance(hard_out, bool):
             raise TypeError("hard_out must be bool.")
         if not isinstance(num_iter, int) or num_iter < 0:
             raise ValueError("num_iter must be a nonnegative int.")
-
-        if encoder.device != self.device:
-            raise ValueError(f"the encoder is on {encoder.device}, the "
-                             f"decoder on {self.device}")
-        self.encoder = encoder
         self._hard_out = hard_out
-        self._return_infobits = bool(return_infobits)
         self._num_iter = num_iter
         self._llr_max = float(llr_max)
-        self._layered = cn_schedule == "layered"
+        self._return_state = bool(return_state)
 
-        # prune the degree-1 parity VNs that are never transmitted
-        pcm = encoder.pcm
-        dv = np.asarray(pcm.sum(axis=0)).ravel()
-        last_pos = encoder.n_ldpc
-        for idx in range(encoder.n_ldpc - 1, 0, -1):
-            if dv[idx] == 1:
-                last_pos = idx
-            else:
-                break
-        k_filler = encoder.k_ldpc - encoder.k
-        nb_punc_bits = (encoder.n_ldpc - k_filler) - encoder.n \
-            - 2 * encoder.z
-        self._nb_pruned_nodes = encoder.n_ldpc - int(
-            max(last_pos, encoder.n_ldpc - nb_punc_bits))
-        self._num_cns = pcm.shape[0] - self._nb_pruned_nodes
-        self._num_vns = pcm.shape[1] - self._nb_pruned_nodes
+        if callable(cn_update):
+            self._cn_update = cn_update
+        elif cn_update in _CN_UPDATES:
+            self._cn_update = _CN_UPDATES[cn_update]
+        else:
+            raise ValueError(f"Unknown cn_update: {cn_update}")
+        if callable(vn_update):
+            self._vn_update_fn = vn_update
+        elif vn_update == "sum":
+            self._vn_update_fn = vn_update_sum
+        elif vn_update == "identity":
+            self._vn_update_fn = vn_node_update_identity
+        else:
+            raise ValueError(f"Unknown vn_update: {vn_update}")
+        self._cn_update_name = cn_update if isinstance(cn_update, str) \
+            else None
 
-        self.lifted = LDPC5GLiftedBP(
-            encoder, self._num_cns, self._num_vns, self._llr_max,
-            offset=0.5 if cn_update == "offset-minsum" else 0.0,
-            cn_mode="boxplus" if cn_update in ("boxplus", "boxplus-phi")
-            else "minsum", device=self.device)
+        if isinstance(cn_schedule, str) and cn_schedule == "flooding":
+            self._scheduling = "flooding"
+            self._layers = None
+        elif isinstance(cn_schedule, str) and cn_schedule == "layered":
+            self._scheduling = "layered"
+            self._layers = [np.array([c]) for c in range(pcm.shape[0])]
+        elif isinstance(cn_schedule, (list, tuple, np.ndarray)):
+            self._scheduling = "layered"
+            self._layers = [np.asarray(l).reshape(-1) for l in cn_schedule]
+        else:
+            raise ValueError(
+                "cn_schedule must be 'flooding', 'layered', or a "
+                "list of CN-index arrays")
+
+        self._v2c_callbacks = list(v2c_callbacks or [])
+        self._c2v_callbacks = list(c2v_callbacks or [])
+        # callbacks that are modules (trainable weights) follow .to()
+        # and show up in parameters()
+        self.callback_modules = nn.ModuleList(
+            cb for cb in self._v2c_callbacks + self._c2v_callbacks
+            if isinstance(cb, nn.Module))
+
+        self._buf("cn_idx", self._cn_idx)
+        self._buf("vn_idx", self._vn_idx)
+        if self._layers is not None:
+            self._build_layered_layout()
+        # One-hot incidence matrices [E, C] / [E, V] for the matmul
+        # engine: exact for the sums and per-edge broadcasts (counts
+        # are bounded by the node degrees)
+        self._use_matmul_engine = (
+            engine == "matmul"
+            and self._num_edges * max(self._num_cns, self._num_vns)
+            <= 64_000_000)
+        if self._use_matmul_engine:
+            e = np.arange(self._num_edges)
+            m_inc = np.zeros((self._num_edges, self._num_cns), np.float32)
+            m_inc[e, self._cn_idx] = 1.
+            n_inc = np.zeros((self._num_edges, self._num_vns), np.float32)
+            n_inc[e, self._vn_idx] = 1.
+            self._buf("m_inc", m_inc, torch.float32)
+            self._buf("n_inc", n_inc, torch.float32)
+
+    def _buf(self, name, value, dtype=torch.int64):
+        self.register_buffer(name, torch.as_tensor(
+            np.asarray(value), dtype=dtype, device=self.device),
+            persistent=False)
+
+    def _build_layered_layout(self):
+        """Padded per-layer edge tables of the layered (serial-C)
+        schedule: for each layer, the edge ids of its check nodes
+        (padded to the largest layer with a dummy edge E), the
+        layer-local check node of each edge (padded with a dummy check
+        node) and its variable node (padded with a dummy node V)."""
+        cn_to_edges = {}
+        for e, c in enumerate(self._cn_idx):
+            cn_to_edges.setdefault(int(c), []).append(e)
+        num_layers = len(self._layers)
+        max_cns = max(len(l) for l in self._layers)
+        max_edges = max(sum(len(cn_to_edges.get(int(c), [])) for c in l)
+                        for l in self._layers)
+        edge_ids = np.full((num_layers, max_edges), self._num_edges)
+        cn_local = np.full((num_layers, max_edges), max_cns)
+        vn_of_edge = np.full((num_layers, max_edges), self._num_vns)
+        for li, layer in enumerate(self._layers):
+            p = 0
+            for local_c, c in enumerate(layer):
+                for e in cn_to_edges.get(int(c), []):
+                    edge_ids[li, p] = e
+                    cn_local[li, p] = local_c
+                    vn_of_edge[li, p] = self._vn_idx[e]
+                    p += 1
+        self._buf("layer_edge_ids", edge_ids)
+        self._buf("layer_cn_local", cn_local)
+        self._buf("layer_vn", vn_of_edge)
+        self._layer_num_cns = max_cns + 1  # + dummy
+
+    def _decode_layered(self, llr_int, num_iter):
+        """Layered (serial-C) decoding: the marginals take each layer's
+        new check messages at once. State: marginals [B, V + 1] and c2v
+        [B, E + 1], one dummy column each for the padding (the dummy
+        edge's c2v is overwritten by every padded slot, and neither
+        dummy reaches a real node). Returns marginals [B, V]."""
+        batch = llr_int.shape[0]
+        marg = torch.cat([llr_int, llr_int.new_zeros(batch, 1)], dim=1)
+        c2v = llr_int.new_zeros(batch, self._num_edges + 1)
+        for _ in range(num_iter):
+            for eids, cn_loc, vns in zip(self.layer_edge_ids,
+                                         self.layer_cn_local,
+                                         self.layer_vn):
+                c2v_old = c2v[:, eids]
+                v2c = marg[:, vns] - c2v_old
+                c2v_new = self._cn_update(v2c, cn_loc, self._layer_num_cns,
+                                          llr_clipping=self._llr_max)
+                marg = marg.index_add(1, vns, c2v_new - c2v_old)
+                c2v = c2v.index_copy(1, eids, c2v_new)
+        return marg[:, :self._num_vns]
+
+    # ------------------------------------------------------------------
+    # Incidence-matmul update engine
+    # ------------------------------------------------------------------
+    def _cn_update_matmul(self, v2c):
+        """Check-node update on [B, E] messages with the graph sums and
+        per-edge broadcasts as one-hot incidence products; only the
+        extrinsic min and second min stay segment reductions. As in the
+        JAX package, its min-sum tests minima with <=, its boxplus
+        clamps |v2c| at the clipping value before the log, and every
+        other name (including "identity") takes the boxplus-phi
+        branch."""
+        name = self._cn_update_name
+        m_inc = self.m_inc.to(v2c.dtype)  # [E, C]
+        clip = self._llr_max
+        big = torch.finfo(v2c.dtype).max
+
+        # extrinsic sign from the parity of negative-message counts
+        neg = (v2c < 0).to(v2c.dtype)
+        ext_neg = (neg @ m_inc) @ m_inc.T - neg
+        sign = 1. - 2. * torch.remainder(ext_neg, 2)
+
+        if name in ("minsum", "offset-minsum"):
+            mag = torch.abs(v2c)
+            m1_e = _segment_min(mag, self.cn_idx, self._num_cns) @ m_inc.T
+            is_min = mag <= m1_e
+            cnt_e = (is_min.to(v2c.dtype) @ m_inc) @ m_inc.T
+            masked = torch.where(is_min, big, mag)
+            m2_e = _segment_min(masked, self.cn_idx,
+                                self._num_cns) @ m_inc.T
+            ext = torch.where(is_min & (cnt_e < 1.5), m2_e, m1_e)
+            if name == "offset-minsum":
+                ext = torch.clamp(ext - 0.5, min=0.)
+        elif name == "boxplus":
+            mag = torch.clamp(torch.clamp(torch.abs(v2c), min=1e-12),
+                              max=clip)
+            lt = torch.log(torch.tanh(mag / 2.))
+            ext_lt = (lt @ m_inc) @ m_inc.T - lt
+            ext = 2. * torch.atanh(torch.clamp(torch.exp(ext_lt), 0.,
+                                               1. - 1e-7))
+        else:  # boxplus-phi
+            mag = torch.clamp(torch.abs(v2c), 8.5e-8, 16.635532)
+            phi = -torch.log(torch.tanh(mag / 2.))
+            ext_phi = torch.clamp((phi @ m_inc) @ m_inc.T - phi,
+                                  min=8.5e-8)
+            ext = -torch.log(torch.tanh(ext_phi / 2.))
+        return torch.clamp(sign * ext, -clip, clip)
+
+    def _vn_update_matmul(self, c2v, llr_int):
+        """Variable-node update as two incidence products; the
+        marginals are not clipped."""
+        n_inc = self.n_inc.to(c2v.dtype)  # [E, V]
+        marg = llr_int + c2v @ n_inc
+        v2c = marg @ n_inc.T - c2v
+        return torch.clamp(v2c, -self._llr_max, self._llr_max), marg
+
+    # ------------------------------------------------------------------
+    @property
+    def pcm(self):
+        return self._pcm
 
     @property
     def num_cns(self):
@@ -160,16 +463,208 @@ class LDPC5GDecoder(Block):
         return self._num_vns
 
     @property
+    def n(self):
+        return self._num_vns
+
+    @property
+    def coderate(self):
+        return (self._num_vns - self._num_cns) / self._num_vns
+
+    @property
+    def num_edges(self):
+        return self._num_edges
+
+    @property
     def num_iter(self):
         return self._num_iter
 
-    def recover_llrs(self, llr_ch):
+    @num_iter.setter
+    def num_iter(self, v):
+        self._num_iter = int(v)
+
+    @property
+    def llr_max(self):
+        return self._llr_max
+
+    @llr_max.setter
+    def llr_max(self, value):
+        self._llr_max = float(value)
+
+    @property
+    def return_state(self):
+        return self._return_state
+
+    # ------------------------------------------------------------------
+    def _iterations(self, num_iter):
+        n_it = self._num_iter if num_iter is None else num_iter
+        if not isinstance(n_it, int) or n_it < 0:
+            raise ValueError("num_iter must be a nonnegative int.")
+        return n_it
+
+    def forward(self, llr_ch, num_iter=None, msg_v2c=None):
+        if llr_ch.device != self.device:
+            raise ValueError(
+                f"LLRs are on {llr_ch.device} but the decoder's tables "
+                f"are on {self.device}; move one with .to()")
+        in_shape = llr_ch.shape
+        llr = llr_ch.reshape(-1, self._num_vns)
+        batch = llr.shape[0]
+        num_iter = self._iterations(num_iter)
+
+        # internal classic convention log(P0/P1)
+        llr_int = -torch.clamp(llr, -self._llr_max, self._llr_max)
+        if msg_v2c is None:
+            v2c0 = _take(llr_int, self.vn_idx)
+        else:
+            v2c0 = -msg_v2c.reshape(batch, self._num_edges)
+
+        if self._scheduling == "layered":
+            marg = self._decode_layered(llr_int, num_iter)
+            v2c = torch.zeros_like(v2c0)
+        else:
+            mdtype = torch.bfloat16 if self._internal_precision == "bf16" \
+                else self.rdtype
+            llr_m = llr_int.to(mdtype)
+            v2c, marg = v2c0.to(mdtype), llr_m
+            # the matmul engine covers the built-in updates without
+            # callbacks; everything else runs on the segment engine
+            if (self._use_matmul_engine
+                    and self._cn_update_name in _CN_UPDATES
+                    and self._vn_update_fn is vn_update_sum
+                    and not self._v2c_callbacks
+                    and not self._c2v_callbacks):
+                for _ in range(num_iter):
+                    v2c, marg = self._vn_update_matmul(
+                        self._cn_update_matmul(v2c), llr_m)
+            else:
+                for it in range(num_iter):
+                    for cb in self._v2c_callbacks:
+                        v2c = cb(v2c, it)
+                    c2v = self._cn_update(v2c, self.cn_idx, self._num_cns,
+                                          llr_clipping=self._llr_max)
+                    for cb in self._c2v_callbacks:
+                        c2v = cb(c2v, it)
+                    v2c, marg = self._vn_update_fn(
+                        c2v, llr_m, self.vn_idx, self._num_vns,
+                        llr_clipping=self._llr_max)
+            v2c, marg = v2c.to(self.rdtype), marg.to(self.rdtype)
+
+        # back to the logit convention
+        llr_out = -marg
+        out = (llr_out > 0).to(self.rdtype) if self._hard_out else llr_out
+        out = out.reshape(in_shape)
+        if self._return_state:
+            return out, -v2c
+        return out
+
+
+class LDPC5GDecoder(LDPCBPDecoder):
+    """5G NR LDPC decoder with rate recovery for an associated
+    :class:`LDPC5GEncoder`.
+
+    With ``prune_pcm`` the degree-1 parity nodes that are never
+    transmitted are removed from the graph. ``engine="auto"`` takes the
+    lifted engine for the built-in check-node updates ("boxplus" and
+    "boxplus-phi" both the exact tanh rule there, "minsum",
+    "offset-minsum" with offset 0.5) with the flooding schedule, no
+    callbacks and no ``return_state``, and the segment engine of
+    :class:`LDPCBPDecoder` otherwise, the layered schedule (one layer
+    per lifted base row) included. ``engine="lifted"`` and "pallas"
+    (the same engine here) take the lifted engine for the flooding and
+    the layered schedule: the plain torch decode for CPU tensors, the
+    CUDA kernel for CUDA tensors. "segment" and "matmul" select those
+    engines of :class:`LDPCBPDecoder`.
+    """
+
+    def __init__(self, encoder, cn_update="boxplus-phi", vn_update="sum",
+                 cn_schedule="flooding", hard_out=True,
+                 return_infobits=True, num_iter=20, llr_max=20.,
+                 v2c_callbacks=None, c2v_callbacks=None, prune_pcm=True,
+                 return_state=False, internal_precision=None,
+                 engine="auto", precision=None, device=None):
+        if not isinstance(encoder, LDPC5GEncoder):
+            raise TypeError("encoder must be of class LDPC5GEncoder.")
+        pcm = encoder.pcm
+        if prune_pcm:
+            # prune the degree-1 parity VNs that are never transmitted
+            dv = np.asarray(pcm.sum(axis=0)).ravel()
+            last_pos = encoder.n_ldpc
+            for idx in range(encoder.n_ldpc - 1, 0, -1):
+                if dv[idx] == 1:
+                    last_pos = idx
+                else:
+                    break
+            k_filler = encoder.k_ldpc - encoder.k
+            nb_punc_bits = (encoder.n_ldpc - k_filler) - encoder.n \
+                - 2 * encoder.z
+            n_pruned = int(max(last_pos, encoder.n_ldpc - nb_punc_bits))
+            nb_pruned_nodes = encoder.n_ldpc - n_pruned
+            if nb_pruned_nodes > 0:
+                pcm = pcm[:-nb_pruned_nodes, :-nb_pruned_nodes]
+        else:
+            nb_pruned_nodes = 0
+            n_pruned = encoder.n_ldpc
+
+        is_layered_str = (isinstance(cn_schedule, str)
+                          and cn_schedule == "layered")
+        if is_layered_str:
+            # one layer per lifted base row (Z check nodes each)
+            z, num_cns = encoder.z, pcm.shape[0]
+            cn_schedule = [np.arange(i, min(i + z, num_cns))
+                           for i in range(0, num_cns, z)]
+        is_flooding = isinstance(cn_schedule, str) \
+            and cn_schedule == "flooding"
+        builtin_cn = isinstance(cn_update, str) \
+            and cn_update in _LIFTED_CN_UPDATES
+        if engine == "auto":
+            engine = "lifted" if (
+                builtin_cn and is_flooding and not return_state
+                and not (v2c_callbacks or c2v_callbacks)) else "segment"
+        use_lifted = engine in ("lifted", "pallas")
+        if use_lifted:
+            if not builtin_cn or not (is_flooding or is_layered_str):
+                raise ValueError(
+                    "engine='lifted'/'pallas' supports the built-in CN "
+                    "updates ('minsum', 'offset-minsum', 'boxplus', "
+                    "'boxplus-phi') with the flooding or layered schedule")
+            if return_state:
+                raise ValueError(
+                    "engine='lifted'/'pallas' does not keep per-edge "
+                    "message state; use engine='segment' (or "
+                    "engine='auto', which falls back automatically) "
+                    "when return_state=True")
+            engine = "segment"  # the base class's engine, unused
+
+        super().__init__(pcm, cn_update=cn_update, vn_update=vn_update,
+                         cn_schedule=cn_schedule, hard_out=hard_out,
+                         num_iter=num_iter, llr_max=llr_max,
+                         v2c_callbacks=v2c_callbacks,
+                         c2v_callbacks=c2v_callbacks,
+                         return_state=return_state,
+                         internal_precision=internal_precision,
+                         engine=engine, precision=precision, device=device)
+        if encoder.device != self.device:
+            raise ValueError(f"the encoder is on {encoder.device}, the "
+                             f"decoder on {self.device}")
+        self.encoder = encoder
+        self._return_infobits = bool(return_infobits)
+        self._prune_pcm = bool(prune_pcm)
+        self._nb_pruned_nodes = nb_pruned_nodes
+        self._n_pruned = n_pruned
+        self._lifted_layered = use_lifted and is_layered_str
+        self.lifted = LDPC5GLiftedBP(
+            encoder, self._num_cns, self._num_vns, self._llr_max,
+            offset=0.5 if cn_update == "offset-minsum" else 0.0,
+            cn_mode="boxplus" if cn_update in ("boxplus", "boxplus-phi")
+            else "minsum", device=self.device) if use_lifted else None
+
+    def _llr_5g(self, llr_ch):
         """Rate recovery: channel LLRs [..., n] (logit convention) ->
-        classic-convention LLRs [B, num_vns], the BP engine's input.
+        LLRs of the pruned mother code [B, n_pruned], same convention.
 
         Undoes the output interleaver, restores the 2Z punctured and the
-        unsent parity positions as zeros (unknown), sets the filler bits
-        to a strongly known zero and clips to ``llr_max``."""
+        unsent parity positions as zeros (unknown) and sets the filler
+        bits to a strongly known zero."""
         llr_ch = torch.as_tensor(llr_ch).to(self.rdtype)
         if llr_ch.device != self.device:
             raise ValueError(
@@ -192,50 +687,64 @@ class LDPC5GDecoder(Block):
                          dtype=dt, device=dev)], dim=1)
         # filler bits are known zeros: strongly negative logit
         nb_par_bits = enc.n_ldpc - k_filler - enc.k - self._nb_pruned_nodes
-        llr_5g = torch.cat(
+        return torch.cat(
             [llr_5g[:, :enc.k],
              torch.full((batch, k_filler), -self._llr_max, dtype=dt,
                         device=dev),
              llr_5g[:, enc.k:enc.k + nb_par_bits]], dim=1)
-        return -torch.clamp(llr_5g, -self._llr_max, self._llr_max)
+
+    def recover_llrs(self, llr_ch):
+        """Rate recovery into the lifted engine's input: channel LLRs
+        [..., n] (logit convention) -> classic-convention LLRs
+        [B, num_vns], clipped to ``llr_max``."""
+        return -torch.clamp(self._llr_5g(llr_ch), -self._llr_max,
+                            self._llr_max)
 
     def forward(self, llr_ch, num_iter=None, msg_v2c=None):
-        if msg_v2c is not None:
-            raise ValueError(
-                "engine='lifted'/'pallas' cannot warm-start from "
-                "msg_v2c; use engine='segment' for state "
-                "round-tripping")
-        n_it = self._num_iter if num_iter is None else num_iter
-        if not isinstance(n_it, int) or n_it < 0:
-            raise ValueError("num_iter must be a nonnegative int.")
         in_shape = llr_ch.shape
         enc = self.encoder
-        llr_out = -self.lifted(self.recover_llrs(llr_ch), n_it,
-                               layered=self._layered)
-        x_hat = (llr_out > 0).to(self.rdtype) if self._hard_out else llr_out
+        if self.lifted is not None:
+            if msg_v2c is not None:
+                raise ValueError(
+                    "engine='lifted'/'pallas' cannot warm-start from "
+                    "msg_v2c; use engine='segment' for state "
+                    "round-tripping")
+            n_it = self._iterations(num_iter)
+            llr_out = -self.lifted(self.recover_llrs(llr_ch), n_it,
+                                   layered=self._lifted_layered)
+            x_hat = (llr_out > 0).to(self.rdtype) if self._hard_out \
+                else llr_out
+        else:
+            output = super().forward(self._llr_5g(llr_ch),
+                                     num_iter=num_iter, msg_v2c=msg_v2c)
+            x_hat, state = output if self._return_state else (output, None)
 
         if self._return_infobits:
-            return x_hat[:, :enc.k].reshape(tuple(in_shape[:-1])
-                                            + (enc.k,))
-        x_no_filler = torch.cat([x_hat[:, :enc.k], x_hat[:, enc.k_ldpc:]],
-                                dim=1)
-        x_short = x_no_filler[:, 2 * enc.z:2 * enc.z + enc.n]
-        if enc.out_int is not None:
-            x_short = x_short[:, enc.out_int]
-        return x_short.reshape(in_shape)
+            out = x_hat[:, :enc.k].reshape(tuple(in_shape[:-1]) + (enc.k,))
+        else:
+            x_no_filler = torch.cat([x_hat[:, :enc.k],
+                                     x_hat[:, enc.k_ldpc:]], dim=1)
+            x_short = x_no_filler[:, 2 * enc.z:2 * enc.z + enc.n]
+            if enc.out_int is not None:
+                x_short = x_short[:, enc.out_int]
+            out = x_short.reshape(in_shape)
+        if self._return_state:
+            return out, state
+        return out
 
 
 def _lifted_cn_phase(v2c, masks, row_edges, n_edges, clip, offset, mode,
-                     full):
+                     full, atanh_form="log1p"):
     """CN phase of the plain lifted engine, op for op as the JAX
-    package's ``_lifted_cn_phase`` (``atanh_form="log1p"``).
+    package's ``_lifted_cn_phase``.
 
     ``v2c``: list of [B, Z] CN-aligned messages; ``masks``: list of [Z]
     activity masks; ``full[e]`` marks edges whose mask is all ones (their
     mask selects are skipped). ``mode="minsum"``: two-minima tracking
     with optional offset. ``mode="boxplus"``: tanh rule with prefix and
     suffix products, extrinsic clamped at 1 - 1e-7, magnitude
-    log1p(x) - log1p(-x)."""
+    log1p(x) - log1p(-x), or log((1 + x) / (1 - x)) with
+    ``atanh_form="ratio"``."""
     ref = next(v for v in v2c if v is not None)
     c2v = [None] * n_edges
     big = torch.tensor(1e30, dtype=ref.dtype, device=ref.device)
@@ -274,7 +783,10 @@ def _lifted_cn_phase(v2c, masks, row_edges, n_edges, clip, offset, mode,
                     ext = torch.minimum(fwd[d - 2], hi)
                 else:
                     ext = torch.minimum(fwd[i - 1] * bwd[i + 1], hi)
-                mag = torch.log1p(ext) - torch.log1p(-ext)
+                if atanh_form == "ratio":
+                    mag = torch.log((1. + ext) / (1. - ext))
+                else:
+                    mag = torch.log1p(ext) - torch.log1p(-ext)
                 out = sign_tot * sgn * torch.clamp(mag, max=clip)
                 c2v[e] = out if full[e] else out * masks[e]
             continue
@@ -309,6 +821,25 @@ def _lifted_cn_phase(v2c, masks, row_edges, n_edges, clip, offset, mode,
     return c2v
 
 
+def _check_knobs(storage_dtype, atanh_form):
+    """The Pallas kernel's two knobs: message storage None (the LLRs'
+    dtype) or torch.bfloat16; boxplus magnitude "log1p" or "ratio"."""
+    if storage_dtype is not None and storage_dtype != torch.bfloat16:
+        raise ValueError("storage_dtype must be None or torch.bfloat16, "
+                         f"got {storage_dtype}")
+    if atanh_form not in ("log1p", "ratio"):
+        raise ValueError("atanh_form must be 'log1p' or 'ratio', got "
+                         f"{atanh_form!r}")
+
+
+def _stored(storage_dtype):
+    """What a store into the message state does to a value: nothing, or
+    rounding to bf16 (nearest even) and widening back."""
+    if storage_dtype is None:
+        return lambda x: x
+    return lambda x: x.to(storage_dtype).to(x.dtype)
+
+
 def _csr(groups, n_groups):
     """(ptr [n_groups + 1], ids) of a dict group -> list of edge ids."""
     ptr, ids = [0], []
@@ -327,8 +858,14 @@ class LDPC5GLiftedBP(nn.Module):
     edge tables are built once here and kept as buffers, so ``.to()``
     moves them to the device the kernel reads them on.
 
-    Calling the module decodes with the plain torch version on a CPU
-    tensor and with the CUDA kernel of the schedule on a CUDA tensor.
+    Calling the module (the counterpart of ``_lifted_pallas_decode``)
+    decodes with the plain torch version on a CPU tensor and with the
+    CUDA kernel of the schedule on a CUDA tensor. It takes the Pallas
+    kernel's knobs: ``storage_dtype=torch.bfloat16`` keeps the message
+    state in bf16 (v2c in flooding, c2v in layered; all arithmetic in
+    f32), ``atanh_form="ratio"`` computes the boxplus magnitude as
+    log((1 + x) / (1 - x)) in flooding; the layered schedule ignores
+    ``atanh_form``, as the Pallas kernel's does.
     """
 
     def __init__(self, encoder, num_cns, num_vns, llr_max, offset=0.0,
@@ -397,23 +934,33 @@ class LDPC5GLiftedBP(nn.Module):
         return {"edges": np.asarray(self._edges, np.int64).reshape(-1, 3),
                 "edge_mask": np.stack(self._edge_mask)}
 
-    def forward(self, llr_int, num_iter, layered=False):
+    def forward(self, llr_int, num_iter, layered=False, storage_dtype=None,
+                atanh_form="log1p"):
         """llr_int: [batch, num_vns] classic-convention LLRs. Returns
         marginals [batch, num_vns] after ``num_iter`` flooding or
         (``layered``) layered iterations."""
+        _check_knobs(storage_dtype, atanh_form)
         if llr_int.is_cuda:
-            return (layered_bp_cuda if layered else lifted_bp_cuda)(
-                self, llr_int, num_iter)
+            if layered:
+                return layered_bp_cuda(self, llr_int, num_iter,
+                                       storage_dtype)
+            return lifted_bp_cuda(self, llr_int, num_iter, storage_dtype,
+                                  atanh_form)
         if llr_int.device.type != "cpu":
             raise ValueError(f"no lifted BP decoder for {llr_int.device}")
         if layered:
-            return self.decode_layered(llr_int, num_iter)
-        return self.decode(llr_int, num_iter)
+            return self.decode_layered(llr_int, num_iter, storage_dtype)
+        return self.decode(llr_int, num_iter, storage_dtype, atanh_form)
 
-    def decode(self, llr_int, num_iter):
-        """Plain torch version of the lifted BP iteration (the kernel's
-        oracle). llr_int: [batch, num_vns] classic-convention LLRs.
-        Returns marginals [batch, num_vns]."""
+    def decode(self, llr_int, num_iter, storage_dtype=None,
+               atanh_form="log1p"):
+        """Plain torch version of the lifted BP iteration (the flooding
+        kernel's oracle). llr_int: [batch, num_vns] classic-convention
+        LLRs. Returns marginals [batch, num_vns]. With bf16 storage the
+        initial and every new v2c message is rounded to bf16 as the
+        kernel stores it; c2v and the marginals are never rounded."""
+        _check_knobs(storage_dtype, atanh_form)
+        store = _stored(storage_dtype)
         z = self._z
         batch = llr_int.shape[0]
         clip = self._llr_max
@@ -438,28 +985,33 @@ class LDPC5GLiftedBP(nn.Module):
                 marg.append(torch.clamp(tot, -clip, clip))
                 for e, x in zip(eids, rolled):
                     v = torch.clamp(tot - x, -clip, clip)
-                    v2c[e] = torch.roll(v, -edges[e][2], dims=-1)
+                    v2c[e] = store(torch.roll(v, -edges[e][2], dims=-1))
             return v2c, torch.stack(marg, dim=1)
 
-        v2c = [torch.roll(torch.clamp(llr_vn[:, c], -clip, clip), -s,
-                          dims=-1)
+        v2c = [store(torch.roll(torch.clamp(llr_vn[:, c], -clip, clip), -s,
+                                dims=-1))
                for (r, c, s) in edges]
         marg = llr_vn  # num_iter == 0 -> marginals = input
         for _ in range(num_iter):
             c2v = _lifted_cn_phase(v2c, masks, self._row_edges, len(edges),
                                    clip, self._offset, self._cn_mode,
-                                   self._edge_full)
+                                   self._edge_full, atanh_form)
             v2c, marg = vn_phase(c2v)
         return marg.reshape(batch, -1)[:, :self._num_vns]
 
-    def decode_layered(self, llr_int, num_iter):
+    def decode_layered(self, llr_int, num_iter, storage_dtype=None):
         """Plain torch version of the layered (serial-C) schedule, op for
         op as the JAX package's ``decode_layered`` (the layered kernel's
         oracle): base rows are processed in order, each row's new check
         messages updating the posterior at once. Only the check messages
         are clipped; clipping the posterior would break the marg/c2v
-        bookkeeping. llr_int: [batch, num_vns]. Returns marginals
-        [batch, num_vns]."""
+        bookkeeping. With bf16 storage the per-edge c2v state is rounded
+        to bf16 when stored, and both the row's v2c and the posterior's
+        increment subtract the rounded old c2v from the unrounded new
+        one, as the Pallas kernel does. llr_int: [batch, num_vns].
+        Returns marginals [batch, num_vns]."""
+        _check_knobs(storage_dtype, "log1p")
+        store = _stored(storage_dtype)
         z = self._z
         batch = llr_int.shape[0]
         pad = self._n_col_blocks * z - self._num_vns
@@ -482,16 +1034,20 @@ class LDPC5GLiftedBP(nn.Module):
                     _, c, s = edges[e]
                     delta = c2v_new[e] - c2v[e]
                     marg[c] = marg[c] + torch.roll(delta, s, dims=-1)
-                    c2v[e] = c2v_new[e]
+                    c2v[e] = store(c2v_new[e])
         out = torch.stack(marg, dim=1).reshape(batch, -1)
         return out[:, :self._num_vns]
 
 
-def _launch(kern, entry, lifted, llr_int, num_iter, tables):
+def _launch(kern, entry, lifted, llr_int, num_iter, tables, storage_dtype,
+            atanh_form, layered):
     """Checks the input, then runs one launch of the lifted BP kernel
     ``kern`` through its C entry point ``entry`` on the current stream
-    (arguments: padded LLRs, ``tables``, output, a [batch, E_b, Z]
-    scratch buffer, the sizes and the CN rule) and counts it. Returns
+    and counts it under its variant ("f32" or "bf16", "+ratio" for the
+    ratio form). Arguments: padded LLRs, ``tables``, output, the
+    [batch, E_b, Z] message scratch (f32 or bf16) and, for the flooding
+    kernel, a second f32 scratch for c2v (bf16 storage only: c2v is
+    never rounded), the sizes, the CN rule and the knobs. Returns
     marginals [batch, num_vns]."""
     name = f"{kern.name} kernel"
     if not llr_int.is_cuda:
@@ -509,6 +1065,9 @@ def _launch(kern, entry, lifted, llr_int, num_iter, tables):
                          f"tables are on {lifted.masks.device}")
     if not isinstance(num_iter, int) or num_iter < 0:
         raise ValueError("num_iter must be a nonnegative int.")
+    _check_knobs(storage_dtype, atanh_form)
+    bf16 = storage_dtype is not None
+    ratio = atanh_form == "ratio"
     z = lifted._z
     batch = llr_int.shape[0]
     n_cols = lifted._n_col_blocks
@@ -517,46 +1076,59 @@ def _launch(kern, entry, lifted, llr_int, num_iter, tables):
     out = torch.empty_like(llr_p)
     if batch == 0:
         return out[:, :lifted._num_vns]
-    scratch = torch.empty((batch, n_edges, z), dtype=torch.float32,
-                          device=llr_int.device)
+    dev = llr_int.device
+    scratch = torch.empty((batch, n_edges, z), device=dev,
+                          dtype=torch.bfloat16 if bf16 else torch.float32)
+    msgs = [scratch.data_ptr()]
+    if not layered:
+        c2v = torch.empty((batch, n_edges, z), dtype=torch.float32,
+                          device=dev) if bf16 else None
+        msgs.append(None if c2v is None else c2v.data_ptr())
     lib = kern.library()
     if lifted._max_degree > lib.sionna_ldpc_max_degree():
         raise ValueError(f"base-graph degree {lifted._max_degree} exceeds "
                          "the kernel's bound")
-    with torch.cuda.device(llr_int.device):
+    knobs = [int(bf16)] if layered else [int(bf16), int(ratio)]
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, entry)(
             llr_p.data_ptr(), *(t.data_ptr() for t in tables),
-            out.data_ptr(), scratch.data_ptr(), batch, lifted._n_row_blocks,
-            n_cols, n_edges, z, num_iter, lifted._llr_max, lifted._offset,
-            0 if lifted._cn_mode == "boxplus" else 1, stream)
+            out.data_ptr(), *msgs, batch, lifted._n_row_blocks, n_cols,
+            n_edges, z, num_iter, lifted._llr_max, lifted._offset,
+            0 if lifted._cn_mode == "boxplus" else 1, *knobs, stream)
     kern.check(err)
-    kern.launches += 1
+    kern.count(("bf16" if bf16 else "f32") + ("+ratio" if ratio else ""))
     return out[:, :lifted._num_vns]
 
 
-def lifted_bp_cuda(lifted, llr_int, num_iter):
+def lifted_bp_cuda(lifted, llr_int, num_iter, storage_dtype=None,
+                   atanh_form="log1p"):
     """Runs the flooding lifted BP decode as one launch of the CUDA
     kernel ``csrc/ldpc_lifted_bp.cu`` on the current stream.
 
     llr_int: contiguous-able f32 CUDA tensor [batch, num_vns] of
     classic-convention LLRs, on the device of ``lifted``'s tables.
-    Returns marginals [batch, num_vns]. Raises on anything the kernel
-    does not take; it has no backward."""
+    ``storage_dtype`` (None or torch.bfloat16) and ``atanh_form``
+    ("log1p" or "ratio") are the Pallas kernel's knobs. Returns
+    marginals [batch, num_vns]. Raises on anything the kernel does not
+    take; it has no backward."""
     return _launch(LIFTED_BP_KERNEL, "sionna_ldpc_lifted_bp", lifted,
                    llr_int, num_iter,
                    (lifted.masks, lifted.edge_col, lifted.edge_shift,
                     lifted.row_ptr, lifted.row_edge_ids, lifted.col_ptr,
-                    lifted.col_edge_ids))
+                    lifted.col_edge_ids), storage_dtype, atanh_form,
+                   layered=False)
 
 
-def layered_bp_cuda(lifted, llr_int, num_iter):
+def layered_bp_cuda(lifted, llr_int, num_iter, storage_dtype=None):
     """Runs the layered lifted BP decode as one launch of the CUDA kernel
     ``csrc/ldpc_layered_bp.cu`` on the current stream.
 
-    Takes and returns what :func:`lifted_bp_cuda` does. Raises on
+    Takes and returns what :func:`lifted_bp_cuda` does, without
+    ``atanh_form`` (the layered schedule uses the log1p form). Raises on
     anything the kernel does not take; it has no backward."""
     return _launch(LAYERED_BP_KERNEL, "sionna_ldpc_layered_bp", lifted,
                    llr_int, num_iter,
                    (lifted.masks, lifted.edge_col, lifted.edge_shift,
-                    lifted.row_ptr, lifted.row_edge_ids))
+                    lifted.row_ptr, lifted.row_edge_ids), storage_dtype,
+                   "log1p", layered=True)

@@ -162,6 +162,9 @@ def test_port_never_imports_jax():
         "import sionna_tpu_torch.phy.channel.awgn\n"
         "import sionna_tpu_torch.phy.fec.ldpc.encoding\n"
         "import sionna_tpu_torch.phy.fec.ldpc.decoding\n"
+        "import sionna_tpu_torch.phy.fec.ldpc.utils\n"
+        "import sionna_tpu_torch.phy.fec.linear, sionna_tpu_torch.phy.fec.utils\n"
+        "import sionna_tpu_torch.tools.ldpc_tune\n"
         "import sionna_tpu_torch.phy.utils.tensors\n"
         "import sionna_tpu_torch.phy.utils.misc\n"
         "import sionna_tpu_torch.phy.utils.metrics\n"

@@ -100,7 +100,8 @@ def _jax_link():
 def test_flagship_link_matches_jax(ebno_db):
     jrg, jrun = _jax_link()
     flood = _port_link(dict(num_iter=20))
-    layered = _port_link(dict(num_iter=10, cn_schedule="layered"))
+    layered = _port_link(dict(num_iter=10, cn_schedule="layered",
+                              engine="pallas"))
     k = flood["enc"].k
     rng = np.random.default_rng(int(ebno_db))
     b = rng.integers(0, 2, (BATCH, 1, 1, k)).astype(np.float32)
@@ -140,7 +141,8 @@ def test_flagship_link_through_sim_ber():
     near 0 above it."""
     gen = torch.Generator().manual_seed(0)
     src = BinarySource()
-    for kw in (dict(num_iter=20), dict(num_iter=10, cn_schedule="layered")):
+    for kw in (dict(num_iter=20),
+               dict(num_iter=10, cn_schedule="layered", engine="pallas")):
         p = _port_link(kw)
         chan = OFDMChannel(TDL("A", 100e-9, 3.5e9, min_speed=3,
                                max_speed=3), p["rg"], normalize_channel=True)
