@@ -88,25 +88,21 @@ FLAGSHIP = dict(batch=2048, nbps=4, rate=0.5, mc_iter=8)
 GENERIC = dict(pcm_id=4, batch=10000, mc_iter=10, num_iter=20)
 KERNELS = (LIFTED_BP_KERNEL, LAYERED_BP_KERNEL)
 _DEC = "sionna_tpu/phy/fec/ldpc/decoding.py"
-# Every kernel variant: (name in the kernels line, kernel, variant as
-# the wrapper counts it, layered, knobs, TPU code it replaces)
+# Every kernel variant: (name in the kernels line, the tuning sweep's
+# label, kernel, variant as the wrapper counts it, TPU code it
+# replaces); its knobs are those of its label in ldpc_tune.KERNEL_VARIANTS
 VARIANTS = [
-    ("ldpc_lifted_bp", LIFTED_BP_KERNEL, "f32", False, {},
+    ("ldpc_lifted_bp", "K1 f32", LIFTED_BP_KERNEL, "f32",
      LIFTED_BP_KERNEL.replaces),
-    ("ldpc_lifted_bp_bf16", LIFTED_BP_KERNEL, "bf16", False,
-     dict(storage_dtype=torch.bfloat16), f"{_DEC}:1141"),
-    ("ldpc_lifted_bp_ratio", LIFTED_BP_KERNEL, "f32+ratio", False,
-     dict(atanh_form="ratio"), f"{_DEC}:880"),
-    ("ldpc_layered_bp", LAYERED_BP_KERNEL, "f32", True, {},
+    ("ldpc_lifted_bp_bf16", "K1 bf16", LIFTED_BP_KERNEL, "bf16",
+     f"{_DEC}:1141"),
+    ("ldpc_lifted_bp_ratio", "K1 f32 ratio", LIFTED_BP_KERNEL, "f32+ratio",
+     f"{_DEC}:880"),
+    ("ldpc_layered_bp", "K3 layered f32", LAYERED_BP_KERNEL, "f32",
      LAYERED_BP_KERNEL.replaces),
-    ("ldpc_layered_bp_bf16", LAYERED_BP_KERNEL, "bf16", True,
-     dict(storage_dtype=torch.bfloat16), f"{_DEC}:1195"),
+    ("ldpc_layered_bp_bf16", "K3 layered bf16", LAYERED_BP_KERNEL, "bf16",
+     f"{_DEC}:1195"),
 ]
-# The tuning sweep's row of each variant
-SWEEP_ROWS = {"ldpc_lifted_bp": "K1 f32", "ldpc_lifted_bp_bf16": "K1 bf16",
-              "ldpc_lifted_bp_ratio": "K1 f32 ratio",
-              "ldpc_layered_bp": "K3 layered f32",
-              "ldpc_layered_bp_bf16": "K3 layered bf16"}
 
 # Flagship BLER bands from the JAX package's run of the same link on the
 # CPU (bench._flagship_step with ldpc_engine="lifted", one block per key,
@@ -154,16 +150,12 @@ def reset_launches():
         kern.reset()
 
 
-def launches_of(name, kern, variant):
-    return {"name": name, "variant": variant,
-            "launches": kern.variant_launches.get(variant, 0)}
-
-
 def variant_calls(name, lift):
     """(kernel call, plain call) of variant ``name`` on ``lift``; each
     takes (LLRs, iterations)."""
-    _, _, _, layered, knobs, _ = next(v for v in VARIANTS if v[0] == name)
-    if layered:
+    _, label, kern, _, _ = next(v for v in VARIANTS if v[0] == name)
+    knobs = ldpc_tune.KERNEL_VARIANTS[label][1]
+    if kern is LAYERED_BP_KERNEL:
         return (lambda x, it: layered_bp_cuda(lift, x, it, **knobs),
                 lambda x, it: lift.decode_layered(x, it, **knobs))
     return (lambda x, it: lifted_bp_cuda(lift, x, it, **knobs),
@@ -225,7 +217,8 @@ def check_kernel_against_plain(dev, layered):
     what torch's CUDA tanh/log1p/log/div compute. Returns {variant name:
     max |kernel - plain|} (0)."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    names = [v[0] for v in VARIANTS if v[3] == layered]
+    kern = LAYERED_BP_KERNEL if layered else LIFTED_BP_KERNEL
+    names = [v[0] for v in VARIANTS if v[2] is kern]
     max_err = dict.fromkeys(names, 0.0)
     iters = (0, 1, 10) if layered else (0, 1, 20)
     # (k, n, nbps, batch, converging / non-converging Eb/N0 in dB); the
@@ -537,7 +530,7 @@ def main():
         print(f"{phase} {kern.name} variants vs plain torch on the card")
         kern.reset()
         max_err.update(check_kernel_against_plain(dev, layered))
-        for name, k, variant, *_ in VARIANTS:
+        for name, _, k, variant, _ in VARIANTS:
             if k is kern and not k.variant_launches.get(variant):
                 raise AssertionError(f"{phase} did not launch {name}")
         print(f"    all cases identical; max |kernel-plain| "
@@ -592,9 +585,12 @@ def main():
     llr_link = dec.recover_llrs(
         noisy_llrs(dec.encoder, LINK["batch"], 3.0, gen)[1])
     times, shapes = {}, {}
-    cases = [(name, flood.dec.lifted, llr_big, 10 if layered else 20,
-              f"n=12288 x 2048, {'layered-10' if layered else 'BP-20'} "
-              "boxplus") for name, _, _, layered, _, _ in VARIANTS]
+    cases = []
+    for name, _, kern, _, _ in VARIANTS:
+        it, schedule = ((10, "layered-10") if kern is LAYERED_BP_KERNEL
+                        else (20, "BP-20"))
+        cases.append((name, flood.dec.lifted, llr_big, it,
+                      f"n=12288 x 2048, {schedule} boxplus"))
     cases.append(("ldpc_lifted_bp", dec.lifted, llr_link, 20,
                   "n=2048 x 2000, BP-20 boxplus"))
     for name, lift, llr, it, shape in cases:
@@ -648,24 +644,16 @@ def main():
     torch.cuda.synchronize()
     main_launches = {
         name: kern.variant_launches.get(variant, 0)
-        for name, kern, variant, *_ in VARIANTS}
+        for name, _, kern, variant, _ in VARIANTS}
     main_launches.update({"ldpc_lifted_bp": flood_launches[
         LIFTED_BP_KERNEL.name]["f32"], "ldpc_layered_bp": layered_launches[
             LAYERED_BP_KERNEL.name]["f32"]})
     print(f"    launches {main_launches}")
-    for name, row in SWEEP_ROWS.items():
-        if row not in sweep or not main_launches[name]:
+    for name, label, *_ in VARIANTS:
+        if label not in sweep or not main_launches[name]:
             raise AssertionError(f"the sweep did not launch {name}")
-    lifted = ldpc_tune.flagship_lifted(dev)
-    llr = ldpc_tune.probe_llrs(lifted)
-    with torch.no_grad():
-        hard = {row[0]: row[3](llr) < 0
-                for row in ldpc_tune.variants(lifted)}
-    for label, ref in (("K1 f32 ratio", "K1 f32"), ("K1 bf16", "K1 f32"),
-                       ("K3 layered bf16", "K3 layered f32")):
-        flips = float((hard[label] != hard[ref]).float().mean())
-        print(f"    hard-decision flip rate of {label} against {ref} on "
-              f"the probe LLRs: {flips:.3e}")
+        print(f"    hard-decision flip rate of {label} against f32 on the "
+              f"probe LLRs: {sweep[label][4]:.3e}")
 
     print("[10] generic-code link (n=648 802.11n LDPC, LDPCBPDecoder "
           "boxplus-phi BP-20, segment engine) through sim_ber")
@@ -721,7 +709,7 @@ def main():
         "shape": shapes[name],
         "ms": times[name][0],
         "plain_ms": times[name][1],
-    } for name, kern, _, _, _, replaces in VARIANTS]}))
+    } for name, _, kern, _, replaces in VARIANTS]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

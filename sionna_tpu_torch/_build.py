@@ -40,8 +40,8 @@ class CudaKernel:
 
     ``functions`` maps each exported C function to ``(argtypes,
     restype)``. The wrapper that launches the kernel calls
-    :meth:`count` once per launch, and nowhere else: it adds one to
-    ``launches`` and to the launch's variant in ``variant_launches``.
+    :meth:`count` once per launch, and nowhere else: it adds one to the
+    launch's variant in ``variant_launches``.
     """
 
     def __init__(self, name, source, replaces, functions):
@@ -50,19 +50,21 @@ class CudaKernel:
         self.replaces = replaces
         self._functions = functions
         self._lib = None
-        self.launches = 0
         self.variant_launches = {}
         self.build_log = None
 
+    @property
+    def launches(self):
+        """Launches of every variant since the last :meth:`reset`."""
+        return sum(self.variant_launches.values())
+
     def count(self, variant):
         """Counts one launch of ``variant`` (e.g. "f32", "bf16")."""
-        self.launches += 1
         self.variant_launches[variant] = \
             self.variant_launches.get(variant, 0) + 1
 
     def reset(self):
         """Sets every launch count to 0."""
-        self.launches = 0
         self.variant_launches = {}
 
     def build(self):

@@ -13,8 +13,8 @@ the flagship workload (5G LDPC BG1, k=6144, n=12288, boxplus, batch
 Run on a machine with a card: ``python -m sionna_tpu_torch.tools.ldpc_tune
 [--quick]``. Each call is timed with CUDA events over several calls after
 a warm-up call. Each variant prints a weighted hard-decision checksum
-``sig`` and the count of ones; equal checksums with the f32 variant of
-the same schedule certify identical hard decisions on the probe LLRs.
+``sig``, the count of ones, and the share of hard decisions that differ
+from the f32 variant of the same schedule on the probe LLRs.
 """
 
 import argparse
@@ -28,53 +28,42 @@ K, N = 6144, 12288
 BATCH = 2048
 NUM_ITER = 20
 LAYERED_ITER = 10
-
-
-def flagship_lifted(device):
-    """The lifted engine of the flagship's boxplus decoder on
-    ``device``."""
-    enc = LDPC5GEncoder(K, N, device=device)
-    dec = LDPC5GDecoder(enc, hard_out=True, cn_update="boxplus",
-                        num_iter=NUM_ITER, engine="pallas", device=device)
-    return dec.lifted
-
-
-def probe_llrs(lifted, seed=0):
-    """The sweep's input: [BATCH, num_vns] classic-convention LLRs,
-    3 times a standard normal draw."""
-    gen = torch.Generator(device=lifted.masks.device).manual_seed(seed)
-    return torch.randn(BATCH, lifted._num_vns, generator=gen,
-                       device=lifted.masks.device) * 3.0
+REPS = 5
+# Every kernel variant the sweep times: label -> (schedule, knobs of
+# lifted_bp_cuda / layered_bp_cuda and of their plain versions)
+KERNEL_VARIANTS = {
+    "K1 f32": ("flooding", {}),
+    "K1 f32 ratio": ("flooding", dict(atanh_form="ratio")),
+    "K1 bf16": ("flooding", dict(storage_dtype=torch.bfloat16)),
+    "K3 layered f32": ("layered", {}),
+    "K3 layered bf16": ("layered", dict(storage_dtype=torch.bfloat16)),
+}
 
 
 def variants(lifted, quick=True):
     """[(label, schedule, iterations, call)]; each call takes the LLRs
     and returns the marginals."""
-    bf16 = torch.bfloat16
-    rows = [
-        ("K1 f32", "flooding", NUM_ITER,
-         lambda x: lifted_bp_cuda(lifted, x, NUM_ITER)),
-        ("K1 f32 ratio", "flooding", NUM_ITER,
-         lambda x: lifted_bp_cuda(lifted, x, NUM_ITER, atanh_form="ratio")),
-        ("K1 bf16", "flooding", NUM_ITER,
-         lambda x: lifted_bp_cuda(lifted, x, NUM_ITER, storage_dtype=bf16)),
-        ("K3 layered f32", "layered", LAYERED_ITER,
-         lambda x: layered_bp_cuda(lifted, x, LAYERED_ITER)),
-        ("K3 layered bf16", "layered", LAYERED_ITER,
-         lambda x: layered_bp_cuda(lifted, x, LAYERED_ITER,
-                                   storage_dtype=bf16)),
-    ]
+    rows = []
+    for label, (schedule, knobs) in KERNEL_VARIANTS.items():
+        if schedule == "layered":
+            rows.append((label, schedule, LAYERED_ITER,
+                         lambda x, kw=knobs: layered_bp_cuda(
+                             lifted, x, LAYERED_ITER, **kw)))
+        else:
+            rows.append((label, schedule, NUM_ITER,
+                         lambda x, kw=knobs: lifted_bp_cuda(
+                             lifted, x, NUM_ITER, **kw)))
     if not quick:
         rows.append(("plain f32", "flooding", NUM_ITER,
                      lambda x: lifted.decode(x, NUM_ITER)))
     return rows
 
 
-def checksum(marg):
-    """(sig, ones): the hard decisions (a negative marginal decides 1)
-    weighted by (column index mod 97) + 1, and their count."""
-    hard = (marg < 0).to(torch.float64)
-    w = torch.arange(marg.shape[1], device=marg.device,
+def checksum(hard):
+    """(sig, ones): the hard decisions weighted by (column index mod 97)
+    + 1, and their count."""
+    hard = hard.to(torch.float64)
+    w = torch.arange(hard.shape[1], device=hard.device,
                      dtype=torch.float64) % 97 + 1
     return float((hard * w).sum()), float(hard.sum())
 
@@ -94,14 +83,22 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def sweep(quick=True, reps=5, device=None):
-    """Times every variant on the probe LLRs and prints one line each.
-    Returns {label: (ms per call, kiter/s, sig, ones)}."""
+def sweep(quick=True):
+    """Times every variant on the probe LLRs ([BATCH, num_vns], 3 times
+    a standard normal draw from seed 0) on the first card and prints one
+    line each. Returns {label: (ms per call, kiter/s, sig, ones, flips)};
+    flips is the share of hard decisions (a negative marginal decides 1)
+    that differ from the first variant of the same schedule (f32)."""
     if not torch.cuda.is_available():
         raise RuntimeError("the LDPC tuning sweep needs a CUDA device")
-    device = torch.device("cuda", 0) if device is None else device
-    lifted = flagship_lifted(device)
-    llr = probe_llrs(lifted)
+    device = torch.device("cuda", 0)
+    enc = LDPC5GEncoder(K, N, device=device)
+    lifted = LDPC5GDecoder(enc, hard_out=True, cn_update="boxplus",
+                           num_iter=NUM_ITER, engine="pallas",
+                           device=device).lifted
+    gen = torch.Generator(device=device).manual_seed(0)
+    llr = torch.randn(BATCH, lifted._num_vns, generator=gen,
+                      device=device) * 3.0
     print(f"z={lifted._z} edges={len(lifted._edges)} "
           f"col_blocks={lifted._n_col_blocks} num_vns={lifted._num_vns} "
           f"batch={BATCH} iters={NUM_ITER} (layered {LAYERED_ITER}) on "
@@ -110,15 +107,16 @@ def sweep(quick=True, reps=5, device=None):
     with torch.no_grad():
         for label, schedule, iters, call in variants(lifted, quick):
             ms = cuda_ms(lambda: call(llr), 1 if label == "plain f32"
-                         else reps)
-            sig, ones = checksum(call(llr))
-            ref.setdefault(schedule, (label, sig))
+                         else REPS)
+            hard = call(llr) < 0
+            sig, ones = checksum(hard)
+            ref_label, ref_hard = ref.setdefault(schedule, (label, hard))
+            flips = float((hard != ref_hard).float().mean())
             kiter = BATCH * iters / ms
-            same = "==" if sig == ref[schedule][1] else "!="
             print(f"{label:18s} {ms:9.3f} ms {kiter:9.1f} kiter/s  "
-                  f"sig={sig:.0f} ones={ones:.0f} "
-                  f"({same} {ref[schedule][0]})", flush=True)
-            results[label] = (ms, kiter, sig, ones)
+                  f"sig={sig:.0f} ones={ones:.0f} flips={flips:.3e} "
+                  f"against {ref_label}", flush=True)
+            results[label] = (ms, kiter, sig, ones, flips)
     return results
 
 

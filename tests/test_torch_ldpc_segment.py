@@ -41,7 +41,8 @@ PCM1 = load_parity_check_examples(1)[0]  # BCH(63,45), check degree <= 24
 PCM3 = load_parity_check_examples(3)[0]  # regular (3,6) LDPC, n=100
 # Soft marginals through the tanh/phi rules after a few iterations:
 # measured up to 1.7e-6 (flooding) and 1.2e-6 (layered) absolute at
-# |marginal| <= 20 after 5 iterations; 1e-5 leaves a margin.
+# |marginal| <= 20 after 5 iterations; 1e-5 leaves a margin. The 5G
+# layered case of the routing test reads 8.6e-6 and states its own bound.
 SOFT_ATOL = 1e-5
 # The matmul engine sums with matrix products (MKL against XLA's dot):
 # measured 3.3e-6 absolute after 5 iterations.
@@ -302,9 +303,12 @@ def test_layered_5g_decoder_runs_the_segment_engine_as_jax():
     engine. Now every case takes the engine JAX takes, and the default
     layered decoder's output equals JAX's: hard decisions after the
     default 20 iterations on noisy codewords (they decode), soft
-    marginals after 2 iterations within SOFT_ATOL (measured 8.6e-6).
-    (Beyond a few iterations layered boxplus is chaotic in f32: a 1-ULP
-    change of one input moves JAX's own marginals by 1.0 after 20.)"""
+    marginals after 2 iterations within 3e-5 (measured 8.6e-6; the
+    parent's lifted tanh-rule engine read 3.8e-6 here, so the soft check
+    does not tell the two engines apart: the routing assertions pin the
+    fault). (Beyond a few iterations layered boxplus is chaotic in f32: a
+    1-ULP change of one input moves JAX's own marginals by 1.0 after
+    20.)"""
     je, te = jldpc.LDPC5GEncoder(100, 200), LDPC5GEncoder(100, 200)
     for kw in ROUTING_CASES:
         jd, td = jldpc.LDPC5GDecoder(je, **kw), LDPC5GDecoder(te, **kw)
@@ -326,7 +330,7 @@ def test_layered_5g_decoder_runs_the_segment_engine_as_jax():
     got = LDPC5GDecoder(te, **kw)(torch.as_tensor(llr)).numpy()
     want = np.asarray(jax.jit(jldpc.LDPC5GDecoder(je, **kw))(
         jnp.asarray(llr)))
-    np.testing.assert_allclose(got, want, rtol=0, atol=SOFT_ATOL)
+    np.testing.assert_allclose(got, want, rtol=0, atol=3e-5)
 
 
 def test_5g_segment_path_matches_jax():
