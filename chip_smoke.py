@@ -7,14 +7,20 @@ through the hand-written CUDA kernels of the lifted LDPC decoder, K1
 kernel's knobs (f32 or bf16 message storage; K1 also the ratio form of
 the boxplus magnitude):
 
-1. prints the card (``nvidia-smi``) and the torch/CUDA versions;
+1. prints the card (``nvidia-smi``) and the torch/CUDA versions, and
+   checks that blocks built without a ``device`` land on ``cuda:0``;
 2. builds both kernels from ``sionna_tpu_torch/csrc`` (one nvcc each,
-   started together) and prints ptxas's report of every variant;
+   started together) and prints ptxas's report of every variant
+   (registers, stack, spills), and counts the FP32 instructions and
+   operations of tanhf/log1pf/logf/division on the path a call executes,
+   in their SASS (``sionna_tpu_torch.tools.sass_ops``), for the kernels'
+   bounds;
 3. holds K1 f32, K1 bf16 and K1 ratio against their plain torch
-   versions, for three codes, three check-node rules, 0/1/20
-   iterations, two SNRs;
+   versions, for four codes (the last, BG1 at Z=384, in K1's cluster
+   layout, the others in its one-block layout), three check-node rules,
+   0/1/20 iterations, two SNRs; prints each code's K1 layout;
 4. holds K3 f32 and K3 bf16 against their plain torch versions, for the
-   same codes and rules, 0/1/10 iterations, two SNRs;
+   first three codes and the same rules, 0/1/10 iterations, two SNRs;
 5. runs the README quick-start link (5G LDPC k=1024, n=2048, 16-QAM,
    AWGN, APP demapper, BP-20 boxplus, batch 2000) through ``sim_ber`` at
    Eb/N0 3 and 4 dB: BLER bands, every tensor on the card, one K1
@@ -29,9 +35,11 @@ the boxplus magnitude):
    launch per decoder call;
 8. times (CUDA events, warm-up excluded) every kernel variant against
    its plain version at the flagship's n=12288 x 2048 (BP-20 flooding,
-   layered-10) and K1 at the link's n=2048 x 2000, each output first
-   held identical to the plain one at that shape; the flagship's Mbit/s
-   and per-stage split, the coded-AWGN link's Mbit/s;
+   layered-10), and K1 at the link's n=2048 x 2000 and in its cluster
+   layout at BG1's n=16896 x 2048, each output first held identical to
+   the plain one at that shape, with its bound and share of it and K1's
+   launch configuration; the flagship's Mbit/s and per-stage split, the
+   coded-AWGN link's Mbit/s;
 9. runs the decoder-kernel tuning sweep
    (``python -m sionna_tpu_torch.tools.ldpc_tune --quick``), the entry
    point of the bf16 and ratio variants: each launched, hard-decision
@@ -49,8 +57,8 @@ the boxplus magnitude):
     with every tensor on the card: finite loss and gradients.
 
 Prints the kernels' JSON line (one entry per kernel variant, ``ms`` /
-``plain_ms`` at the entry's ``shape``), the card again, and last
-``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
+``plain_ms`` / ``bound_ms`` at the entry's ``shape``), the card again,
+and last ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
 Run from the repository root: ``python3 chip_smoke.py``.
 """
 
@@ -81,11 +89,18 @@ from sionna_tpu_torch.phy.mimo import StreamManagement
 from sionna_tpu_torch.phy.ofdm import (LMMSEEqualizer, LSChannelEstimator,
                                        ResourceGrid, ResourceGridMapper)
 from sionna_tpu_torch.phy.utils import ebnodb2no, sim_ber
-from sionna_tpu_torch.tools import ldpc_tune
+from sionna_tpu_torch.tools import ldpc_tune, sass_ops
 
 LINK = dict(k=1024, n=2048, nbps=4, batch=2000, num_iter=20)
 FLAGSHIP = dict(batch=2048, nbps=4, rate=0.5, mc_iter=8)
 GENERIC = dict(pcm_id=4, batch=10000, mc_iter=10, num_iter=20)
+# An H100 SXM's published peaks at its 700 W limit (HBM3, FP32 outside
+# the tensor cores): the bounds' two rates. FP32 instructions issue at
+# half the operation rate (one per lane and clock, an FFMA being two
+# operations): the tighter bound printed beside it.
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_OPS_S = 67e12
+PEAK_F32_ISSUE_S = PEAK_F32_OPS_S / 2
 KERNELS = (LIFTED_BP_KERNEL, LAYERED_BP_KERNEL)
 _DEC = "sionna_tpu/phy/fec/ldpc/decoding.py"
 # Every kernel variant: (name in the kernels line, the tuning sweep's
@@ -162,20 +177,56 @@ def variant_calls(name, lift):
             lambda x, it: lift.decode(x, it, **knobs))
 
 
+def template_label(args):
+    """A kernel's template arguments, from its mangled name: K1
+    <bf16 rounding, form, cluster layout>, K3 <storage type>."""
+    flags = [int(x) for x in re.findall(r"L[bi](\d+)E", args + "E")]
+    if len(flags) == 3:
+        return (f"{'bf16' if flags[0] else 'f32'},"
+                f"{'ratio' if flags[1] else 'log1p'},"
+                f"{'cluster' if flags[2] else '1 block'}")
+    return "bf16" if "bfloat16" in args else "f32"
+
+
 def ptxas_report(kern):
     """One line per compiled kernel variant: its template arguments and
-    ptxas's registers, stack and spill figures."""
+    ptxas's registers, stack, spill and static shared-memory figures (the
+    message state is dynamic shared memory, printed with the layouts)."""
     lines, entry = [], None
     for line in kern.build_log.splitlines():
         m = re.search(r"Compiling entry function '.*?_kernelI(.*?)EEv", line)
         if m:
-            entry = (m.group(1).replace("13__nv_bfloat16", "bf16")
-                     .replace("Li0E", ",log1p").replace("Li1E", ",ratio"))
-            entry = "f32" + entry[1:] if entry.startswith("f") else entry
-        elif entry and ("registers" in line or "spill" in line):
+            entry = template_label(m.group(1))
+        elif entry and ("registers" in line or "spill" in line
+                        or "smem" in line):
             lines.append(f"{kern.name}<{entry}>: {line.split(':', 1)[-1]}"
                          .strip())
     return lines
+
+
+def lifted_bound(lift, batch, num_iter, per_update):
+    """(bound ms, "bytes" or "operations", FP32 issue ms) of one lifted
+    BP call (K1, or K3 with its layered updates counted like K1's): the
+    LLRs read and the marginals written once at HBM3's 3.35 TB/s, against
+    the edge-lane updates this call makes times the FP32 operations of one
+    (``per_update``: instructions, operations) at 67 TFLOP/s (an H100 SXM
+    at 700 W); and the time its FP32 instructions take to issue."""
+    n_bytes = 2 * batch * lift._n_col_blocks * lift._z * 4
+    updates = batch * num_iter * len(lift._edges) * lift._z
+    t_bytes = n_bytes / PEAK_BYTES_S
+    t_ops = updates * per_update[1] / PEAK_F32_OPS_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes",
+            updates * per_update[0] / PEAK_F32_ISSUE_S * 1e3)
+
+
+def layout_line(lift):
+    layout = lift.k1_layout()
+    return (f"threads {layout.threads}, cluster {layout.cluster} "
+            f"block(s) per codeword, dynamic shared memory "
+            f"{layout.smem_bytes} B ({layout.state_floats * 4} B of slots), "
+            f"{len(layout.reg_edges)} register edges "
+            f"({layout.reg_units_per_thread} units per thread)")
 
 
 def noisy_llrs(enc, batch, ebno_db, gen):
@@ -223,15 +274,23 @@ def check_kernel_against_plain(dev, layered):
     iters = (0, 1, 10) if layered else (0, 1, 20)
     # (k, n, nbps, batch, converging / non-converging Eb/N0 in dB); the
     # plain layered decode launches ~50 small ops per base edge and row,
-    # so its n=12288 cases run at a reduced batch
+    # so its n=12288 cases run at a reduced batch. K1 also takes the
+    # rate-1/2 BG1 code at Z=384, whose state needs its cluster layout
     codes = [(100, 200, None, 256, (5.0, 0.0)),
              (LINK["k"], LINK["n"], LINK["nbps"], LINK["batch"], (3.0, 0.0)),
              (6144, 12288, None, 256 if layered else 2048, (2.5, 0.0))]
+    if not layered:
+        codes.append((8448, 16896, None, 64, (2.5, 0.0)))
+    clusters = set()
     for k, n, nbps, batch, snrs in codes:
         enc = LDPC5GEncoder(k, n, num_bits_per_symbol=nbps, device=dev)
         for cn in ("boxplus", "minsum", "offset-minsum"):
             dec = LDPC5GDecoder(enc, cn_update=cn, engine="lifted",
                                 device=dev)
+            if not layered and cn == "boxplus":
+                clusters.add(dec.lifted.k1_layout().cluster)
+                print(f"  K1 layout of ({k},{n}): "
+                      f"{layout_line(dec.lifted)}")
             for ebno_db in snrs:
                 b, llr = noisy_llrs(enc, batch, ebno_db, gen)
                 llr_int = dec.recover_llrs(llr)
@@ -252,6 +311,9 @@ def check_kernel_against_plain(dev, layered):
                           f"{ebno_db:4.1f} dB iters {iters}: "
                           f"max|kernel-plain| {max(errs):.3e} (info BER "
                           f"{ber:.2e} after {iters[-1]})")
+    if not layered and clusters != {1, 2}:
+        raise AssertionError(f"phase 3 reached K1 clusters {clusters}, "
+                             "not both layouts (1 and 2 blocks)")
     return max_err
 
 
@@ -514,15 +576,26 @@ def main():
     print(f"    torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} device(s)")
+    # the port's blocks default to the card: no device given
+    default_dev = {BinarySource().device, LDPC5GEncoder(100, 200).device,
+                   BinarySource()([4]).device}
+    print(f"    blocks built without a device: {sorted(map(str, default_dev))}")
+    if default_dev != {dev}:
+        raise AssertionError(f"blocks without a device on {default_dev}")
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
+    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+        ops_job = pool.submit(sass_ops.function_ops)
         list(pool.map(lambda kern: kern.library(), KERNELS))
-    print(f"[2] built {', '.join(k.source.name for k in KERNELS)} in "
-          f"{time.perf_counter() - t0:.2f} s")
+        function_ops = ops_job.result()
+    ops_per_update = sass_ops.ops_per_update(function_ops)
+    print(f"[2] built {', '.join(k.source.name for k in KERNELS)} and the "
+          f"SASS probes in {time.perf_counter() - t0:.2f} s")
     for kern in KERNELS:
         for line in ptxas_report(kern):
             print(f"    ptxas {line}")
+    print(f"    FP32 (instructions, operations) on the executed path of "
+          f"{function_ops}; per boxplus edge-lane update {ops_per_update}")
 
     max_err = {}
     for phase, kern, layered in (("[3]", LIFTED_BP_KERNEL, False),
@@ -584,7 +657,12 @@ def main():
         noisy_llrs(flood.enc, FLAGSHIP["batch"], 2.5, gen)[1])
     llr_link = dec.recover_llrs(
         noisy_llrs(dec.encoder, LINK["batch"], 3.0, gen)[1])
-    times, shapes = {}, {}
+    # BG1 at Z=384, the code K1's cluster layout exists for
+    bg1 = LDPC5GDecoder(LDPC5GEncoder(8448, 16896, device=dev),
+                        cn_update="boxplus", engine="lifted", device=dev)
+    llr_bg1 = bg1.recover_llrs(
+        noisy_llrs(bg1.encoder, FLAGSHIP["batch"], 2.5, gen)[1])
+    times, shapes, bounds = {}, {}, {}
     cases = []
     for name, _, kern, _, _ in VARIANTS:
         it, schedule = ((10, "layered-10") if kern is LAYERED_BP_KERNEL
@@ -593,6 +671,8 @@ def main():
                       f"n=12288 x 2048, {schedule} boxplus"))
     cases.append(("ldpc_lifted_bp", dec.lifted, llr_link, 20,
                   "n=2048 x 2000, BP-20 boxplus"))
+    cases.append(("ldpc_lifted_bp", bg1.lifted, llr_bg1, 20,
+                  "n=16896 x 2048, BP-20 boxplus"))
     for name, lift, llr, it, shape in cases:
         ker, plain = variant_calls(name, lift)
         err = assert_identical(ker(llr, it), plain(llr, it),
@@ -600,12 +680,22 @@ def main():
         max_err[name] = max(max_err[name], err)
         (k1, k2), (p1, p2) = in_turns(lambda: ker(llr, it),
                                       lambda: plain(llr, it), 10, 2)
+        form = "ratio" if name.endswith("ratio") else "log1p"
+        bound = lifted_bound(lift, llr.shape[0], it, ops_per_update[form])
         print(f"    {name}, {shape}: max|kernel-plain| {err:.3e}; "
               f"kernel {k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / "
-              f"{p2:.3f} ms per call")
+              f"{p2:.3f} ms per call; bound {bound[0]:.3f} ms "
+              f"({bound[1]}), {100 * bound[0] / min(k1, k2):.1f} % of it; "
+              f"FP32 issue {bound[2]:.3f} ms, "
+              f"{100 * bound[2] / min(k1, k2):.1f} %")
+        if name.startswith("ldpc_lifted_bp"):
+            print(f"      K1 launch: {llr.shape[0]} codewords x "
+                  f"{layout_line(lift)}; "
+                  f"{llr.shape[0] * lift.k1_layout().cluster} blocks")
         if name not in times:  # the kernels line: flagship shape
             times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
             shapes[name] = shape
+            bounds[name] = bound
     ker_ms, plain_ms = times["ldpc_lifted_bp"]
     print(f"    ldpc_bp_codeword_iterations_per_s: kernel "
           f"{2048 * 20 / ker_ms:.3f} kiter/s, plain "
@@ -709,6 +799,9 @@ def main():
         "shape": shapes[name],
         "ms": times[name][0],
         "plain_ms": times[name][1],
+        "bound_ms": bounds[name][0],
+        "bound_by": bounds[name][1],
+        "library_ms": None,
     } for name, _, kern, _, replaces in VARIANTS]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,9 @@ plain C interface (shared device code in ``csrc/*.cuh``). On first use,
 ``nvcc`` compiles it for Hopper (``sm_90a``) into
 ``build/sionna_tpu_torch/`` at the repository root; the library's file
 name carries a hash of the source, the headers and the flags, so it is
-rebuilt only when one of them changes. Nothing is downloaded, and a
-failed build raises.
+rebuilt only when one of them changes. A kernel may take constants from
+the Python side as ``-D`` defines, so that they have one source. Nothing
+is downloaded, and a failed build raises.
 """
 
 import ctypes
@@ -39,16 +40,19 @@ class CudaKernel:
     kernel it replaces, its C entry points, and a count of launches.
 
     ``functions`` maps each exported C function to ``(argtypes,
-    restype)``. The wrapper that launches the kernel calls
+    restype)``; ``defines`` maps macro names to the values nvcc gets for
+    them. The wrapper that launches the kernel calls
     :meth:`count` once per launch, and nowhere else: it adds one to the
     launch's variant in ``variant_launches``.
     """
 
-    def __init__(self, name, source, replaces, functions):
+    def __init__(self, name, source, replaces, functions, defines=None):
         self.name = name
         self.source = CSRC_DIR / source
         self.replaces = replaces
         self._functions = functions
+        self.flags = NVCC_FLAGS + [f"-D{k}={v}"
+                                   for k, v in (defines or {}).items()]
         self._lib = None
         self.variant_launches = {}
         self.build_log = None
@@ -73,13 +77,13 @@ class CudaKernel:
         digest = hashlib.sha256(self.source.read_bytes())
         for header in sorted(CSRC_DIR.glob("*.cuh")):
             digest.update(header.read_bytes())
-        digest.update(" ".join(NVCC_FLAGS).encode())
+        digest.update(" ".join(self.flags).encode())
         path = BUILD_DIR / f"lib{self.name}_{digest.hexdigest()[:16]}.so"
         log = path.with_suffix(".log")
         if not path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+            cmd = [_nvcc(), *self.flags, "-o", str(tmp), str(self.source)]
             proc = subprocess.run(cmd, capture_output=True, text=True,
                                   check=False)
             if proc.returncode != 0:

@@ -59,15 +59,17 @@ class Block(Object, nn.Module):
     """Base class for all processing blocks.
 
     ``device`` places the block's buffers (and the tensors it creates,
-    e.g. random bits) on that device; ``.to(device)`` moves them later.
+    e.g. random bits) on that device, by default ``config.device`` (the
+    card); ``.to(device)`` moves them later.
     """
 
     def __init__(self, precision=None, device=None):
         super().__init__(precision=precision)
         # Empty buffer that follows .to()/.cuda()/.cpu(): the block's
         # device even when it holds no other tensor.
-        self.register_buffer("_anchor", torch.empty(0, device=device),
-                             persistent=False)
+        self.register_buffer(
+            "_anchor", torch.empty(0, device=config.device if device is None
+                                   else device), persistent=False)
 
     @property
     def device(self):

@@ -28,7 +28,8 @@ class TDL(ChannelModel):
 
     Call with ``(batch_size, num_time_steps, sampling_frequency)`` and
     optionally ``generator=`` (the draws then happen on its device) or
-    ``device=`` (default: the ``device`` given here, else the CPU).
+    ``device=`` (default: the ``device`` given here, else
+    ``config.device``).
     """
 
     def __init__(self, model, delay_spread, carrier_frequency,
@@ -47,7 +48,8 @@ class TDL(ChannelModel):
                 delay_spread = forced
         self._load_parameters(f"TDL-{model}.json")
 
-        self._device = torch.device("cpu" if device is None else device)
+        self._device = config.device if device is None \
+            else torch.device(device)
         self._num_rx_ant = int(num_rx_ant)
         self._num_tx_ant = int(num_tx_ant)
         self._carrier_frequency = float(carrier_frequency)

@@ -1,9 +1,16 @@
-"""Global configuration: precision, dtypes and random streams.
+"""Global configuration: precision, device, dtypes and random streams.
 
 PyTorch counterpart of ``sionna_tpu/phy/config.py``. Precision
 "single"/"double" maps to ``torch.float32``/``complex64`` and
 ``torch.float64``/``complex128``. Every block passes explicit dtypes, so
 nothing here changes a process-wide default.
+
+Device: ``config.device`` (default ``"cuda"``, the current card) is
+where a block that is given no ``device`` puts its tables and draws, as
+the JAX package runs on its accelerator by default. On a machine without
+a card that default does not turn into the CPU: the first tensor made
+there raises torch's own error. Set ``config.device = "cpu"`` (or pass
+``device="cpu"``) to run on the CPU.
 
 Random state: ``config.seed`` seeds Python's ``random``, NumPy and one
 default ``torch.Generator`` per device (created on first use). Random
@@ -49,6 +56,7 @@ class Config:
         self._np_rng = None
         self._generators = {}
         self._precision = "single"
+        self._device = torch.device("cuda")
 
     @property
     def py_rng(self):
@@ -64,10 +72,11 @@ class Config:
             self._np_rng = np.random.default_rng(self._seed)
         return self._np_rng
 
-    def generator(self, device="cpu"):
-        """Default ``torch.Generator`` of ``device``, seeded from
-        ``seed`` (or from the OS when no seed is set)."""
-        device = torch.device(device)
+    def generator(self, device=None):
+        """Default ``torch.Generator`` of ``device`` (default:
+        :attr:`device`), seeded from ``seed`` (or from the OS when no
+        seed is set)."""
+        device = self._device if device is None else torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         if device not in self._generators:
@@ -92,6 +101,16 @@ class Config:
         self._py_rng = random.Random(seed)
         self._np_rng = np.random.default_rng(seed)
         self._generators = {}
+
+    @property
+    def device(self):
+        """torch.device : Where blocks built without ``device`` live
+        (default ``cuda``); takes anything ``torch.device`` takes"""
+        return self._device
+
+    @device.setter
+    def device(self, v):
+        self._device = torch.device(v)
 
     @property
     def precision(self):

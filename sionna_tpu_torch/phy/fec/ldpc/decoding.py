@@ -16,7 +16,8 @@ PyTorch counterpart of ``sionna_tpu/phy/fec/ldpc/decoding.py``:
   plain torch decodes, flooding and layered, and the wrappers of the two
   hand-written CUDA kernels that replace the Pallas kernel
   ``_lifted_pallas_decode``: :func:`lifted_bp_cuda` (flooding,
-  ``csrc/ldpc_lifted_bp.cu``) and :func:`layered_bp_cuda` (layered,
+  ``csrc/ldpc_lifted_bp.cu``, in the on-chip layout that
+  :func:`lifted_bp_layout` plans) and :func:`layered_bp_cuda` (layered,
   ``csrc/ldpc_layered_bp.cu``), each with the Pallas kernel's bf16
   message storage and (flooding) its ``ratio`` form of the boxplus
   magnitude.
@@ -31,6 +32,7 @@ work in the classic log(P0/P1) convention (input and output negated).
 """
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import scipy.sparse as sp_sparse
@@ -39,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...block import Block
+from ...config import config
 from ...._build import CudaKernel
 from .encoding import LDPC5GEncoder
 
@@ -46,7 +49,8 @@ __all__ = ["LDPCBPDecoder", "LDPC5GDecoder", "cn_update_minsum",
            "cn_update_offset_minsum", "cn_update_tanh", "cn_update_phi",
            "vn_update_sum", "cn_node_update_identity",
            "vn_node_update_identity", "LDPC5GLiftedBP", "lifted_bp_cuda",
-           "layered_bp_cuda", "LIFTED_BP_KERNEL", "LAYERED_BP_KERNEL"]
+           "layered_bp_cuda", "lifted_bp_layout",
+           "LiftedBPLayout", "LIFTED_BP_KERNEL", "LAYERED_BP_KERNEL"]
 
 _LIFTED_CN_UPDATES = ("minsum", "offset-minsum", "boxplus", "boxplus-phi")
 
@@ -54,16 +58,41 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
+#: Shared memory one thread block may use on an H100, in bytes.
+SMEM_PER_BLOCK = 232_448
+# Limits of the K1 kernel's layouts. They are defined here only: nvcc
+# gets them as defines, from which csrc/ldpc_lifted_bp.cu takes its
+# constants. Threads per block, blocks per cluster, register-edge CN units
+# per thread in one block and in a cluster (whose slot addresses take
+# more registers), and the row degrees the kernel has a check-node case
+# for (it checks its cases against them): those of the 5G base graphs'
+# rows, 3-10 and 19, and 1-2.
+K1_MAX_THREADS = 512
+K1_MAX_CLUSTER = 8
+K1_REG_UNITS = {False: 12, True: 8}  # by cluster layout
+K1_ROW_DEGREES = frozenset(range(1, 11)) | {19}
+#: The arrays of K1's plan, in order; the plan starts with their offsets.
+K1_PLAN_ARRAYS = ("row_ptr", "row_slot", "row_range", "col_ptr",
+                  "col_slot", "col_shift", "reg_rows", "reg_pos", "reg_col",
+                  "reg_shift", "plain_rows", "vn_cols")
+
 #: The CUDA kernel of the lifted BP decoder (built on first use).
 LIFTED_BP_KERNEL = CudaKernel(
     name="ldpc_lifted_bp",
     source="ldpc_lifted_bp.cu",
     replaces="sionna_tpu/phy/fec/ldpc/decoding.py:1106",
     functions={
-        "sionna_ldpc_lifted_bp": ([_P] * 11 + [_I] * 6 + [_F, _F]
-                                  + [_I] * 3 + [_P], _I),
-        "sionna_ldpc_max_degree": ([], _I),
+        "sionna_ldpc_lifted_bp": ([_P] * 3 + [_I] * 9 + [_F, _F]
+                                  + [_I] * 5 + [_P], _I),
         "sionna_cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+    defines={
+        "SIONNA_K1_MAX_THREADS": K1_MAX_THREADS,
+        "SIONNA_K1_MAX_CLUSTER": K1_MAX_CLUSTER,
+        "SIONNA_K1_REG_UNITS": K1_REG_UNITS[False],
+        "SIONNA_K1_REG_UNITS_CLUSTER": K1_REG_UNITS[True],
+        "SIONNA_K1_ROW_DEGREE_MASK": sum(1 << d for d in K1_ROW_DEGREES),
+        "SIONNA_K1_PLAN_ARRAYS": len(K1_PLAN_ARRAYS),
     })
 
 #: The CUDA kernel of the layered lifted BP decoder (built on first use).
@@ -910,6 +939,8 @@ class LDPC5GLiftedBP(nn.Module):
                            for (r, c, s) in edges]
         self._edge_full = [bool(np.all(m == 1.)) for m in self._edge_mask]
 
+        device = config.device if device is None else device
+
         def buf(name, values, dtype=torch.int32):
             self.register_buffer(
                 name, torch.as_tensor(np.asarray(values), dtype=dtype,
@@ -927,6 +958,23 @@ class LDPC5GLiftedBP(nn.Module):
         buf("row_edge_ids", row_ids)
         buf("col_ptr", col_ptr)
         buf("col_edge_ids", col_ids)
+        self._k1_layout = None
+        self._k1_plans = {}  # K1's plan by device (k1_plan)
+
+    def k1_layout(self):
+        """:func:`lifted_bp_layout` of this code (cached)."""
+        if self._k1_layout is None:
+            self._k1_layout = lifted_bp_layout(self)
+        return self._k1_layout
+
+    def k1_plan(self, device):
+        """The plan of :meth:`k1_layout` as an int32 tensor on ``device``
+        (cached)."""
+        device = torch.device(device)
+        if device not in self._k1_plans:
+            self._k1_plans[device] = torch.as_tensor(self.k1_layout().plan,
+                                                     device=device)
+        return self._k1_plans[device]
 
     def numpy_structure(self):
         """The lifted graph as NumPy arrays, for
@@ -1039,16 +1087,12 @@ class LDPC5GLiftedBP(nn.Module):
         return out[:, :self._num_vns]
 
 
-def _launch(kern, entry, lifted, llr_int, num_iter, tables, storage_dtype,
-            atanh_form, layered):
-    """Checks the input, then runs one launch of the lifted BP kernel
-    ``kern`` through its C entry point ``entry`` on the current stream
-    and counts it under its variant ("f32" or "bf16", "+ratio" for the
-    ratio form). Arguments: padded LLRs, ``tables``, output, the
-    [batch, E_b, Z] message scratch (f32 or bf16) and, for the flooding
-    kernel, a second f32 scratch for c2v (bf16 storage only: c2v is
-    never rounded), the sizes, the CN rule and the knobs. Returns
-    marginals [batch, num_vns]."""
+def _check_llrs(kern, lifted, llr_int, num_iter, storage_dtype,
+                atanh_form):
+    """Raises unless ``llr_int`` is what the lifted BP kernel ``kern``
+    takes: f32 CUDA LLRs [batch, num_vns] without grad, on the device of
+    ``lifted``'s tables, with a nonnegative int ``num_iter`` and the
+    Pallas kernel's knobs."""
     name = f"{kern.name} kernel"
     if not llr_int.is_cuda:
         raise ValueError(f"the {name} needs a CUDA tensor")
@@ -1066,8 +1110,209 @@ def _launch(kern, entry, lifted, llr_int, num_iter, tables, storage_dtype,
     if not isinstance(num_iter, int) or num_iter < 0:
         raise ValueError("num_iter must be a nonnegative int.")
     _check_knobs(storage_dtype, atanh_form)
+
+
+def _variant(storage_dtype, atanh_form):
+    """The launch-count variant: "f32" or "bf16", "+ratio" for the ratio
+    form."""
+    return (("bf16" if storage_dtype is not None else "f32")
+            + ("+ratio" if atanh_form == "ratio" else ""))
+
+
+class LiftedBPLayout(NamedTuple):
+    """How the flooding kernel K1 lays out one code's message state on
+    the card (see :func:`lifted_bp_layout`)."""
+
+    threads: int          # threads per block
+    cluster: int          # blocks per codeword (a thread-block cluster)
+    smem_bytes: int       # dynamic shared memory per block
+    state_floats: int     # shared slots per block, in floats
+    reg_edges: tuple      # edges whose slots live in registers
+    slots: tuple          # per edge: (owner block, index) or None
+    ranges: tuple         # per edge: cyclic active lanes (lo, length)
+    reg_units_per_thread: int
+    n_reg_rows: int
+    n_plain_rows: int
+    n_vn_cols: int
+    plan: np.ndarray      # int32 tables the kernel copies to shared memory
+
+
+def _cyclic_range(mask):
+    """(lo, length) such that lane l is active iff (l - lo) mod Z <
+    length, or None when the active lanes of ``mask`` are not one cyclic
+    range."""
+    act = np.asarray(mask) > 0
+    z = act.size
+    n = int(act.sum())
+    if n in (0, z):
+        return (0, n)
+    starts = np.flatnonzero(act & ~np.roll(act, 1))
+    if len(starts) != 1:
+        return None
+    return (int(starts[0]), n)
+
+
+def lifted_bp_layout(lifted):
+    """The layout of K1 (``csrc/ldpc_lifted_bp.cu``) for the code of
+    ``lifted``: which edges keep their message slots in registers, how
+    many blocks share one codeword, the shared-memory bytes, the threads
+    per block and the int32 plan the kernel reads. Plain Python, run once
+    per decoder.
+
+    - Register edges: each base row's first edge whose column has degree
+      1; the thread of CN unit (row, lane) keeps that lane's slot and
+      updates the column itself.
+    - Every other edge has one f32 slot per lane in shared memory. When
+      they do not fit one block (``SMEM_PER_BLOCK``, with the plan), the
+      codeword takes a cluster of 2-8 blocks and the shared edges are
+      split into contiguous groups of edge ids, one group per block.
+    - Cluster: the fewest blocks whose shared memory holds the slots and
+      whose threads hold the register edges' lanes in at most
+      ``K1_REG_UNITS`` registers each.
+    - Threads: enough for one CN or VN unit each, up to
+      ``K1_MAX_THREADS`` per block (512: with the 128 registers a thread
+      of K1 takes, the most one SM holds).
+    - Each edge's mask (``lifted.masks``) becomes one cyclic range of
+      active lanes.
+
+    Raises ValueError for a code that no layout takes (a row degree
+    outside ``K1_ROW_DEGREES``, a mask that is not one cyclic range, no
+    cluster of up to ``K1_MAX_CLUSTER`` blocks that holds the state)."""
+    z = lifted._z
+    edges = lifted._edges
+    n_e = len(edges)
+    n_rows, n_cols = lifted._n_row_blocks, lifted._n_col_blocks
+    rows = [lifted._row_edges.get(r, []) for r in range(n_rows)]
+    cols = [lifted._col_edges.get(c, []) for c in range(n_cols)]
+    degrees = {len(r) for r in rows if r} - K1_ROW_DEGREES
+    if degrees:
+        raise ValueError(f"no K1 layout takes a row degree of "
+                         f"{sorted(degrees)}")
+    ranges = tuple(_cyclic_range(m) for m in lifted._edge_mask)
+    if any(r is None for r in ranges):
+        raise ValueError("no K1 layout takes an edge mask that is not one "
+                         "cyclic range of lanes")
+
+    reg_of_row = {}
+    for r, eids in enumerate(rows):
+        for p, e in enumerate(eids):
+            if len(cols[edges[e][1]]) == 1:
+                reg_of_row[r] = p
+                break
+    reg_rows = sorted(reg_of_row)
+    reg_edges = tuple(rows[r][reg_of_row[r]] for r in reg_rows)
+    reg_cols = {edges[e][1] for e in reg_edges}
+    plain_rows = [r for r in range(n_rows) if rows[r] and r not in reg_of_row]
+    vn_cols = [c for c in range(n_cols) if c not in reg_cols]
+    shared = [e for e in range(n_e) if e not in set(reg_edges)]
+
+    plan_len = len(K1_PLAN_ARRAYS) + n_rows + 1 + n_cols + 1 + 4 * n_e + \
+        4 * len(reg_rows) + len(plain_rows) + len(vn_cols)
+    units = max(n_rows * z, len(vn_cols) * z)
+    for cluster in range(1, K1_MAX_CLUSTER + 1):
+        per_block = -(-len(shared) // cluster)
+        if (per_block * z + plan_len) * 4 > SMEM_PER_BLOCK:
+            continue
+        threads = min(K1_MAX_THREADS, -(-units // (cluster * 32)) * 32)
+        per_thread = -(-len(reg_rows) * z // (cluster * threads))
+        if per_thread <= K1_REG_UNITS[cluster > 1]:
+            break
+    else:
+        raise ValueError(
+            f"no K1 layout takes this code: {len(shared)} shared edges "
+            f"and {len(reg_rows)} register edges of {z} lanes need more "
+            f"than {K1_MAX_CLUSTER} blocks of {K1_MAX_THREADS} threads")
+
+    slots = [None] * n_e
+    counts = [0] * cluster
+    for m, e in enumerate(shared):
+        owner = m * cluster // len(shared)
+        slots[e] = (owner, counts[owner])
+        counts[owner] += 1
+    state_floats = max(counts) * z
+
+    def slot_id(e):
+        return -1 if slots[e] is None else (slots[e][0] << 16) | slots[e][1]
+
+    row_ptr, row_ids = _csr(dict(enumerate(rows)), n_rows)
+    col_ptr, col_ids = _csr(dict(enumerate(cols)), n_cols)
+    arrays = [
+        row_ptr,
+        [slot_id(e) for e in row_ids],
+        [ranges[e][0] | (ranges[e][1] << 16) for e in row_ids],
+        col_ptr,
+        [slot_id(e) for e in col_ids],
+        [edges[e][2] for e in col_ids],
+        reg_rows,
+        [reg_of_row[r] for r in reg_rows],
+        [edges[e][1] for e in reg_edges],
+        [edges[e][2] for e in reg_edges],
+        plain_rows,
+        vn_cols,
+    ]
+    offsets = np.cumsum([len(arrays)] + [len(a) for a in arrays])[:-1]
+    plan = np.concatenate([offsets] + [np.asarray(a, np.int64)
+                                       for a in arrays]).astype(np.int32)
+    assert len(arrays) == len(K1_PLAN_ARRAYS) and plan.size == plan_len
+    return LiftedBPLayout(
+        threads=threads, cluster=cluster,
+        smem_bytes=(state_floats + plan_len) * 4, state_floats=state_floats,
+        reg_edges=reg_edges, slots=tuple(slots), ranges=ranges,
+        reg_units_per_thread=per_thread, n_reg_rows=len(reg_rows),
+        n_plain_rows=len(plain_rows), n_vn_cols=len(vn_cols), plan=plan)
+
+
+def lifted_bp_cuda(lifted, llr_int, num_iter, storage_dtype=None,
+                   atanh_form="log1p"):
+    """Runs the flooding lifted BP decode as one launch of the CUDA
+    kernel ``csrc/ldpc_lifted_bp.cu`` (K1) on the current stream, in the
+    layout of :func:`lifted_bp_layout`, and counts it under its variant.
+
+    llr_int: contiguous-able f32 CUDA tensor [batch, num_vns] of
+    classic-convention LLRs, on the device of ``lifted``'s tables.
+    ``storage_dtype`` (None or torch.bfloat16) and ``atanh_form``
+    ("log1p" or "ratio") are the Pallas kernel's knobs. Returns
+    marginals [batch, num_vns]. Raises on anything the kernel does not
+    take; it has no backward."""
+    kern = LIFTED_BP_KERNEL
+    _check_llrs(kern, lifted, llr_int, num_iter, storage_dtype, atanh_form)
+    z = lifted._z
+    batch = llr_int.shape[0]
+    n_cols = lifted._n_col_blocks
+    llr_p = F.pad(llr_int, (0, n_cols * z - lifted._num_vns)).contiguous()
+    out = torch.empty_like(llr_p)
+    if batch == 0:
+        return out[:, :lifted._num_vns]
+    lib = kern.library()
+    layout = lifted.k1_layout()
+    plan = lifted.k1_plan(llr_int.device)
+    with torch.cuda.device(llr_int.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sionna_ldpc_lifted_bp(
+            llr_p.data_ptr(), plan.data_ptr(), out.data_ptr(), batch,
+            n_cols, z, layout.n_reg_rows, layout.n_plain_rows,
+            layout.n_vn_cols, layout.state_floats, plan.numel(), num_iter,
+            lifted._llr_max, lifted._offset,
+            0 if lifted._cn_mode == "boxplus" else 1,
+            int(storage_dtype is not None), int(atanh_form == "ratio"),
+            layout.threads, layout.cluster, stream)
+    kern.check(err)
+    kern.count(_variant(storage_dtype, atanh_form))
+    return out[:, :lifted._num_vns]
+
+
+def layered_bp_cuda(lifted, llr_int, num_iter, storage_dtype=None):
+    """Runs the layered lifted BP decode as one launch of the CUDA kernel
+    ``csrc/ldpc_layered_bp.cu`` (K3) on the current stream.
+
+    Takes and returns what :func:`lifted_bp_cuda` does, without
+    ``atanh_form`` (the layered schedule uses the log1p form). The c2v
+    state lives in a [batch, E_b, Z] scratch (f32 or bf16) allocated
+    here. Raises on anything the kernel does not take; it has no
+    backward."""
+    kern = LAYERED_BP_KERNEL
+    _check_llrs(kern, lifted, llr_int, num_iter, storage_dtype, "log1p")
     bf16 = storage_dtype is not None
-    ratio = atanh_form == "ratio"
     z = lifted._z
     batch = llr_int.shape[0]
     n_cols = lifted._n_col_blocks
@@ -1076,59 +1321,21 @@ def _launch(kern, entry, lifted, llr_int, num_iter, tables, storage_dtype,
     out = torch.empty_like(llr_p)
     if batch == 0:
         return out[:, :lifted._num_vns]
-    dev = llr_int.device
-    scratch = torch.empty((batch, n_edges, z), device=dev,
-                          dtype=torch.bfloat16 if bf16 else torch.float32)
-    msgs = [scratch.data_ptr()]
-    if not layered:
-        c2v = torch.empty((batch, n_edges, z), dtype=torch.float32,
-                          device=dev) if bf16 else None
-        msgs.append(None if c2v is None else c2v.data_ptr())
+    c2v = torch.empty((batch, n_edges, z), device=llr_int.device,
+                      dtype=torch.bfloat16 if bf16 else torch.float32)
     lib = kern.library()
     if lifted._max_degree > lib.sionna_ldpc_max_degree():
         raise ValueError(f"base-graph degree {lifted._max_degree} exceeds "
                          "the kernel's bound")
-    knobs = [int(bf16)] if layered else [int(bf16), int(ratio)]
-    with torch.cuda.device(dev):
+    tables = (lifted.masks, lifted.edge_col, lifted.edge_shift,
+              lifted.row_ptr, lifted.row_edge_ids)
+    with torch.cuda.device(llr_int.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, entry)(
+        err = lib.sionna_ldpc_layered_bp(
             llr_p.data_ptr(), *(t.data_ptr() for t in tables),
-            out.data_ptr(), *msgs, batch, lifted._n_row_blocks, n_cols,
-            n_edges, z, num_iter, lifted._llr_max, lifted._offset,
-            0 if lifted._cn_mode == "boxplus" else 1, *knobs, stream)
+            out.data_ptr(), c2v.data_ptr(), batch, lifted._n_row_blocks,
+            n_cols, n_edges, z, num_iter, lifted._llr_max, lifted._offset,
+            0 if lifted._cn_mode == "boxplus" else 1, int(bf16), stream)
     kern.check(err)
-    kern.count(("bf16" if bf16 else "f32") + ("+ratio" if ratio else ""))
+    kern.count(_variant(storage_dtype, "log1p"))
     return out[:, :lifted._num_vns]
-
-
-def lifted_bp_cuda(lifted, llr_int, num_iter, storage_dtype=None,
-                   atanh_form="log1p"):
-    """Runs the flooding lifted BP decode as one launch of the CUDA
-    kernel ``csrc/ldpc_lifted_bp.cu`` on the current stream.
-
-    llr_int: contiguous-able f32 CUDA tensor [batch, num_vns] of
-    classic-convention LLRs, on the device of ``lifted``'s tables.
-    ``storage_dtype`` (None or torch.bfloat16) and ``atanh_form``
-    ("log1p" or "ratio") are the Pallas kernel's knobs. Returns
-    marginals [batch, num_vns]. Raises on anything the kernel does not
-    take; it has no backward."""
-    return _launch(LIFTED_BP_KERNEL, "sionna_ldpc_lifted_bp", lifted,
-                   llr_int, num_iter,
-                   (lifted.masks, lifted.edge_col, lifted.edge_shift,
-                    lifted.row_ptr, lifted.row_edge_ids, lifted.col_ptr,
-                    lifted.col_edge_ids), storage_dtype, atanh_form,
-                   layered=False)
-
-
-def layered_bp_cuda(lifted, llr_int, num_iter, storage_dtype=None):
-    """Runs the layered lifted BP decode as one launch of the CUDA kernel
-    ``csrc/ldpc_layered_bp.cu`` on the current stream.
-
-    Takes and returns what :func:`lifted_bp_cuda` does, without
-    ``atanh_form`` (the layered schedule uses the log1p form). Raises on
-    anything the kernel does not take; it has no backward."""
-    return _launch(LAYERED_BP_KERNEL, "sionna_ldpc_layered_bp", lifted,
-                   llr_int, num_iter,
-                   (lifted.masks, lifted.edge_col, lifted.edge_shift,
-                    lifted.row_ptr, lifted.row_edge_ids), storage_dtype,
-                   "log1p", layered=True)

@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from ...block import Object
+from ...config import config
 
 __all__ = ["EXITCallback", "DecoderStatisticsCallback",
            "WeightedBPCallback"]
@@ -72,7 +73,7 @@ class WeightedBPCallback(nn.Module):
         super().__init__()
         self.weights = nn.Parameter(torch.full(
             (int(num_edges),), float(init), dtype=torch.float32,
-            device=device))
+            device=config.device if device is None else device))
 
     def forward(self, msg, it):
         return msg * self.weights

@@ -57,7 +57,7 @@ class OSDecoder(Block):
         for name, value in (("_gm_t", self._gm),
                             ("_patterns", np.stack(patterns))):  # [P, k]
             self.register_buffer(name, torch.as_tensor(value,
-                                                       device=device),
+                                                       device=self.device),
                                  persistent=False)
 
     @property

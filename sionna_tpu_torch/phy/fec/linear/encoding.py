@@ -32,7 +32,7 @@ class LinearEncoder(Block):
         self._gm = gm.astype(np.float32)
         self._k, self._n = self._gm.shape
         self.register_buffer("_gm_t", torch.as_tensor(self._gm,
-                                                      device=device),
+                                                      device=self.device),
                              persistent=False)
 
     @property

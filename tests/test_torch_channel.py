@@ -22,8 +22,19 @@ from sionna_tpu_torch.phy.channel.tr38901 import TDL
 from sionna_tpu_torch.phy.constants import PI, SPEED_OF_LIGHT
 from sionna_tpu_torch.phy.ofdm import ResourceGrid
 from sionna_tpu_torch.phy.utils import load_numpy_state
+from sionna_tpu_torch.phy.config import config as torch_config
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _blocks_on_cpu():
+    """The port's blocks default to the card (``config.device``); these
+    tests ask for the CPU."""
+    device = torch_config.device
+    torch_config.device = "cpu"
+    yield
+    torch_config.device = device
 
 # Unit roundoff of f32.
 F32_U = 2.0 ** -24

@@ -16,8 +16,19 @@ import sionna_tpu.phy.utils as jutils
 import sionna_tpu_torch.phy.utils as tutils
 from sionna_tpu_torch.phy import Block, config, dtypes
 from sionna_tpu_torch.phy.utils import expand_to_rank
+from sionna_tpu_torch.phy.config import config as torch_config
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _blocks_on_cpu():
+    """The port's blocks default to the card (``config.device``); these
+    tests ask for the CPU."""
+    device = torch_config.device
+    torch_config.device = "cpu"
+    yield
+    torch_config.device = device
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -32,9 +43,10 @@ class _Echo(Block):
 @pytest.fixture
 def port_config():
     """The port's global config, restored after the test."""
-    seed, precision = config.seed, config.precision
+    seed, precision, device = config.seed, config.precision, config.device
     yield config
     config.seed, config.precision = seed, precision
+    config.device = device
 
 
 def test_precision_dtypes(port_config):
@@ -76,6 +88,95 @@ def test_block_buffers_follow_to():
     assert blk.device == torch.device("cpu")
     assert blk.to("cpu") is blk and blk.device.type == "cpu"
     assert dict(blk.named_parameters()) == {}
+
+
+def test_config_device_defaults_to_the_card():
+    """Without ``device`` a block lands on ``config.device``, "cuda" by
+    default. Where there is no card that default does not fall back to
+    the CPU: making the block raises torch's own error."""
+    code = (
+        "import torch\n"
+        "from sionna_tpu_torch.phy import BinarySource, config\n"
+        "print(config.device)\n"
+        "try:\n"
+        "    print(BinarySource()([4]).device.type)\n"
+        "except (AssertionError, RuntimeError) as err:\n"
+        "    print('raised', type(err).__name__, err)\n"
+        "print(torch.cuda.is_available())\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    device, made, has_card = proc.stdout.strip().splitlines()
+    assert device == "cuda"
+    if has_card == "True":
+        assert made == "cuda"
+    else:
+        assert made.startswith("raised") and "CUDA" in made
+
+
+def test_blocks_take_config_device(port_config):
+    """A block, the LDPC code's tables, the TDL model's draws and the
+    default generator follow ``config.device`` when no ``device`` is
+    given, and an explicit ``device`` wins."""
+    from sionna_tpu_torch.phy import BinarySource
+    from sionna_tpu_torch.phy.channel.tr38901 import TDL
+    from sionna_tpu_torch.phy.fec.ldpc import (LDPC5GDecoder,
+                                               LDPC5GEncoder,
+                                               WeightedBPCallback)
+    port_config.device = "meta"
+    assert _Echo().device == torch.device("meta")
+    assert _Echo(device="cpu").device == torch.device("cpu")
+    assert WeightedBPCallback(5).weights.device.type == "meta"
+    port_config.device = "cpu"
+    assert port_config.device == torch.device("cpu")
+    assert port_config.generator().device == torch.device("cpu")
+    assert BinarySource()([8]).device.type == "cpu"
+    dec = LDPC5GDecoder(LDPC5GEncoder(100, 200))
+    assert {b.device.type for b in dec.buffers()} == {"cpu"}
+    assert {b.device.type for b in dec.lifted.buffers()} == {"cpu"}
+    a, tau = TDL("A", 100e-9, 3.5e9)(2, 3, 1e6)
+    assert a.device.type == tau.device.type == "cpu"
+
+
+def _blocks_without_device():
+    """{name: constructor} of blocks with tables, built with no
+    ``device``."""
+    from sionna_tpu_torch.phy import AWGN, BinarySource, Demapper, Mapper
+    from sionna_tpu_torch.phy.fec.interleaving import RowColumnInterleaver
+    from sionna_tpu_torch.phy.fec.ldpc import (LDPC5GEncoder,
+                                               LDPCBPDecoder)
+    from sionna_tpu_torch.phy.fec.linear import LinearEncoder, OSDecoder
+    from sionna_tpu_torch.phy.fec.utils import load_parity_check_examples
+    from sionna_tpu_torch.phy.ofdm import ResourceGrid, ResourceGridMapper
+    pcm = load_parity_check_examples(0)[0]
+    return {
+        "LinearEncoder": lambda: LinearEncoder(pcm, is_pcm=True),
+        "OSDecoder": lambda: OSDecoder(pcm, t=1, is_pcm=True),
+        "Mapper": lambda: Mapper("qam", 4),
+        "Demapper": lambda: Demapper("app", "qam", 4),
+        "AWGN": AWGN,
+        "BinarySource": BinarySource,
+        "RowColumnInterleaver": lambda: RowColumnInterleaver(4),
+        "LDPC5GEncoder": lambda: LDPC5GEncoder(100, 200),
+        "LDPCBPDecoder": lambda: LDPCBPDecoder(pcm),
+        "ResourceGridMapper": lambda: ResourceGridMapper(ResourceGrid(
+            num_ofdm_symbols=14, fft_size=64, subcarrier_spacing=30e3,
+            pilot_pattern="kronecker", pilot_ofdm_symbol_indices=[2, 11])),
+    }
+
+
+@pytest.mark.parametrize("name", ["LinearEncoder", "OSDecoder", "Mapper",
+                                  "Demapper", "AWGN", "BinarySource",
+                                  "RowColumnInterleaver", "LDPC5GEncoder",
+                                  "LDPCBPDecoder", "ResourceGridMapper"])
+def test_block_tables_take_config_device(port_config, name):
+    """Every buffer and parameter of a block built with no ``device``
+    lies on ``config.device``, not only its reported device."""
+    port_config.device = "meta"
+    blk = _blocks_without_device()[name]()
+    assert blk.device == torch.device("meta")
+    assert {t.device.type for t in (*blk.buffers(), *blk.parameters())} \
+        == {"meta"}
 
 
 def test_seed_reproduces_streams(port_config):

@@ -18,8 +18,19 @@ from sionna_tpu.phy.fec.linear import LinearEncoder as JLinearEncoder
 from sionna_tpu.phy.fec.linear import OSDecoder as JOSDecoder
 import sionna_tpu_torch.phy.fec.utils as tutils
 from sionna_tpu_torch.phy.fec.linear import LinearEncoder, OSDecoder
+from sionna_tpu_torch.phy.config import config as torch_config
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _blocks_on_cpu():
+    """The port's blocks default to the card (``config.device``); these
+    tests ask for the CPU."""
+    device = torch_config.device
+    torch_config.device = "cpu"
+    yield
+    torch_config.device = device
 
 CODES = Path(__file__).resolve().parent / "codes" / "ldpc"
 

@@ -31,8 +31,19 @@ from sionna_tpu_torch.phy.mimo import StreamManagement
 from sionna_tpu_torch.phy.ofdm import (LMMSEEqualizer, LSChannelEstimator,
                                        ResourceGrid, ResourceGridMapper)
 from sionna_tpu_torch.phy.utils import ebnodb2no, sim_ber
+from sionna_tpu_torch.phy.config import config as torch_config
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _blocks_on_cpu():
+    """The port's blocks default to the card (``config.device``); these
+    tests ask for the CPU."""
+    device = torch_config.device
+    torch_config.device = "cpu"
+    yield
+    torch_config.device = device
 
 NBPS, FFT, BATCH = 4, 64, 4
 RG = dict(num_ofdm_symbols=14, fft_size=FFT, subcarrier_spacing=30e3,

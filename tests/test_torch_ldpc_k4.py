@@ -16,6 +16,7 @@ next to a bf16 rounding boundary can round the other way, one bf16 ULP
 bound, and the hard decisions must be identical."""
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -27,8 +28,19 @@ from sionna_tpu.phy.fec.ldpc.decoding import _lifted_pallas_decode
 from sionna_tpu_torch.phy.fec.ldpc import LDPC5GDecoder, LDPC5GEncoder
 from sionna_tpu_torch.phy.fec.ldpc.decoding import (LAYERED_BP_KERNEL,
                                                     LIFTED_BP_KERNEL)
+from sionna_tpu_torch.phy.config import config as torch_config
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _blocks_on_cpu():
+    """The port's blocks default to the card (``config.device``); these
+    tests ask for the CPU."""
+    device = torch_config.device
+    torch_config.device = "cpu"
+    yield
+    torch_config.device = device
 
 NUM_ITER = 5
 LAYERED_ITER = 2

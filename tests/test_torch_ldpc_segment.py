@@ -34,8 +34,19 @@ import sionna_tpu_torch.phy.fec.ldpc.decoding as tdec
 from sionna_tpu_torch.phy.fec.ldpc import (LDPC5GDecoder, LDPC5GEncoder,
                                            LDPCBPDecoder)
 from sionna_tpu_torch.phy.fec.utils import pcm2gm
+from sionna_tpu_torch.phy.config import config as torch_config
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _blocks_on_cpu():
+    """The port's blocks default to the card (``config.device``); these
+    tests ask for the CPU."""
+    device = torch_config.device
+    torch_config.device = "cpu"
+    yield
+    torch_config.device = device
 
 PCM1 = load_parity_check_examples(1)[0]  # BCH(63,45), check degree <= 24
 PCM3 = load_parity_check_examples(3)[0]  # regular (3,6) LDPC, n=100

@@ -16,8 +16,19 @@ from sionna_tpu.phy.fec.ldpc import LDPC5GDecoder as JDec
 from sionna_tpu_torch.phy import AWGN, BinarySource, Demapper, Mapper
 from sionna_tpu_torch.phy.fec.ldpc import LDPC5GDecoder, LDPC5GEncoder
 from sionna_tpu_torch.phy.utils import ebnodb2no, hard_decisions, sim_ber
+from sionna_tpu_torch.phy.config import config as torch_config
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _blocks_on_cpu():
+    """The port's blocks default to the card (``config.device``); these
+    tests ask for the CPU."""
+    device = torch_config.device
+    torch_config.device = "cpu"
+    yield
+    torch_config.device = device
 
 # Demapper LLRs: logsumexp over 16 points (port) against per-axis
 # pairwise logaddexp (JAX), both f32: a few ULP of |LLR| <= ~40.

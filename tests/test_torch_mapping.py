@@ -12,8 +12,19 @@ import jax.numpy as jnp
 import sionna_tpu.phy.mapping as jp
 import sionna_tpu_torch.phy as tp
 from sionna_tpu_torch.phy.utils import load_numpy_state
+from sionna_tpu_torch.phy.config import config as torch_config
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _blocks_on_cpu():
+    """The port's blocks default to the card (``config.device``); these
+    tests ask for the CPU."""
+    device = torch_config.device
+    torch_config.device = "cpu"
+    yield
+    torch_config.device = device
 
 # Demapper LLRs: the port reduces the 2^K points with torch.logsumexp
 # (or max) over masked logits; JAX's Gray-QAM fast path reduces per axis

@@ -24,8 +24,19 @@ from sionna_tpu_torch.phy.ofdm import (LMMSEEqualizer, LSChannelEstimator,
 from sionna_tpu_torch.phy.utils import ebnodb2no, load_numpy_state
 from sionna_tpu_torch.phy.utils.linalg import (_matmul, cholesky_solve,
                                                inv_cholesky)
+from sionna_tpu_torch.phy.config import config as torch_config
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _blocks_on_cpu():
+    """The port's blocks default to the card (``config.device``); these
+    tests ask for the CPU."""
+    device = torch_config.device
+    torch_config.device = "cpu"
+    yield
+    torch_config.device = device
 
 # LS estimates divide by unit-modulus pilots: complex division rounds
 # differently in XLA and torch, a few ULP of |h| <= ~5.
