@@ -11,16 +11,20 @@ the boxplus magnitude):
    checks that blocks built without a ``device`` land on ``cuda:0``;
 2. builds both kernels from ``sionna_tpu_torch/csrc`` (one nvcc each,
    started together) and prints ptxas's report of every variant
-   (registers, stack, spills), and counts the FP32 instructions and
-   operations of tanhf/log1pf/logf/division on the path a call executes,
-   in their SASS (``sionna_tpu_torch.tools.sass_ops``), for the kernels'
-   bounds;
+   (registers, stack, spills; a K3 variant with a stack frame or spills
+   fails), and counts the FP32 instructions and operations of
+   tanhf/log1pf/logf/division on the path a call executes, in their SASS
+   (``sionna_tpu_torch.tools.sass_ops``), for the kernels' bounds;
 3. holds K1 f32, K1 bf16 and K1 ratio against their plain torch
    versions, for four codes (the last, BG1 at Z=384, in K1's cluster
    layout, the others in its one-block layout), three check-node rules,
    0/1/20 iterations, two SNRs; prints each code's K1 layout;
 4. holds K3 f32 and K3 bf16 against their plain torch versions, for the
-   first three codes and the same rules, 0/1/10 iterations, two SNRs;
+   same four codes and the largest 5G code (BG1, Z=384, rate 1/3: five
+   blocks in f32, three in bf16), the same rules, 0/1/10 iterations, two
+   SNRs, and fails unless both K3 layouts ran (one block: bf16 at
+   n=12288; a cluster: f32 at n=12288, BG1 at Z=384); prints each code's
+   K3 layouts;
 5. runs the README quick-start link (5G LDPC k=1024, n=2048, 16-QAM,
    AWGN, APP demapper, BP-20 boxplus, batch 2000) through ``sim_ber`` at
    Eb/N0 3 and 4 dB: BLER bands, every tensor on the card, one K1
@@ -35,11 +39,12 @@ the boxplus magnitude):
    launch per decoder call;
 8. times (CUDA events, warm-up excluded) every kernel variant against
    its plain version at the flagship's n=12288 x 2048 (BP-20 flooding,
-   layered-10), and K1 at the link's n=2048 x 2000 and in its cluster
-   layout at BG1's n=16896 x 2048, each output first held identical to
-   the plain one at that shape, with its bound and share of it and K1's
-   launch configuration; the flagship's Mbit/s and per-stage split, the
-   coded-AWGN link's Mbit/s;
+   layered-10), K1 (BP-20) and K3 f32 (layered-10) at the link's
+   n=2048 x 2000, and K1 f32 and both K3 variants at BG1's n=16896 x
+   2048 (the cluster layouts), each output first held identical to the
+   plain one at that shape, with its bound and share of it and the
+   kernel's launch configuration; the flagship's Mbit/s and per-stage
+   split, the coded-AWGN link's Mbit/s;
 9. runs the decoder-kernel tuning sweep
    (``python -m sionna_tpu_torch.tools.ldpc_tune --quick``), the entry
    point of the bf16 and ratio variants: each launched, hard-decision
@@ -179,13 +184,23 @@ def variant_calls(name, lift):
 
 def template_label(args):
     """A kernel's template arguments, from its mangled name: K1
-    <bf16 rounding, form, cluster layout>, K3 <storage type>."""
+    <bf16 rounding, form, cluster layout>, K3 <storage type, blocks: 1,
+    or a cluster of up to 4 or 8>."""
     flags = [int(x) for x in re.findall(r"L[bi](\d+)E", args + "E")]
     if len(flags) == 3:
         return (f"{'bf16' if flags[0] else 'f32'},"
                 f"{'ratio' if flags[1] else 'log1p'},"
                 f"{'cluster' if flags[2] else '1 block'}")
-    return "bf16" if "bfloat16" in args else "f32"
+    blocks = flags[-1]
+    return (f"{'bf16' if 'bfloat16' in args else 'f32'},"
+            + (f"cluster <= {blocks}" if blocks > 1 else "1 block"))
+
+
+def local_memory_bytes(line):
+    """The stack frame and spill bytes of a ptxas report line (0 for a
+    line without them)."""
+    return sum(int(x) for x in re.findall(
+        r"(\d+) bytes (?:stack frame|spill stores|spill loads)", line))
 
 
 def ptxas_report(kern):
@@ -227,6 +242,25 @@ def layout_line(lift):
             f"{layout.smem_bytes} B ({layout.state_floats * 4} B of slots), "
             f"{len(layout.reg_edges)} register edges "
             f"({layout.reg_units_per_thread} units per thread)")
+
+
+def k3_layout_line(lift, storage_dtype):
+    layout = lift.k3_layout(storage_dtype)
+    return (f"threads {layout.threads}, cluster {layout.cluster} "
+            f"block(s) per codeword of {layout.lanes} lanes each, dynamic "
+            f"shared memory {layout.smem_bytes} B")
+
+
+def launch_line(name, lift, batch):
+    """The launch configuration of variant ``name`` on ``lift``."""
+    if name.startswith("ldpc_lifted_bp"):
+        return (f"K1 launch: {batch} codewords x {layout_line(lift)}; "
+                f"{batch * lift.k1_layout().cluster} blocks")
+    storage = ldpc_tune.KERNEL_VARIANTS[
+        next(v[1] for v in VARIANTS if v[0] == name)][1].get("storage_dtype")
+    return (f"K3 launch: {batch} codewords x "
+            f"{k3_layout_line(lift, storage)}; "
+            f"{batch * lift.k3_layout(storage).cluster} blocks")
 
 
 def noisy_llrs(enc, batch, ebno_db, gen):
@@ -274,20 +308,29 @@ def check_kernel_against_plain(dev, layered):
     iters = (0, 1, 10) if layered else (0, 1, 20)
     # (k, n, nbps, batch, converging / non-converging Eb/N0 in dB); the
     # plain layered decode launches ~50 small ops per base edge and row,
-    # so its n=12288 cases run at a reduced batch. K1 also takes the
-    # rate-1/2 BG1 code at Z=384, whose state needs its cluster layout
+    # so its n=12288 cases run at a reduced batch. The rate-1/2 BG1 code
+    # at Z=384 needs the kernels' cluster layouts (K3 f32 also takes one
+    # at n=12288); K3 also runs the largest 5G code, rate 1/3 at Z=384,
+    # in five blocks (f32) and three (bf16)
     codes = [(100, 200, None, 256, (5.0, 0.0)),
              (LINK["k"], LINK["n"], LINK["nbps"], LINK["batch"], (3.0, 0.0)),
-             (6144, 12288, None, 256 if layered else 2048, (2.5, 0.0))]
-    if not layered:
-        codes.append((8448, 16896, None, 64, (2.5, 0.0)))
+             (6144, 12288, None, 256 if layered else 2048, (2.5, 0.0)),
+             (8448, 16896, None, 64, (2.5, 0.0))]
+    if layered:
+        codes.append((8448, 25344, None, 32, (1.5, 0.0)))
     clusters = set()
     for k, n, nbps, batch, snrs in codes:
         enc = LDPC5GEncoder(k, n, num_bits_per_symbol=nbps, device=dev)
         for cn in ("boxplus", "minsum", "offset-minsum"):
             dec = LDPC5GDecoder(enc, cn_update=cn, engine="lifted",
                                 device=dev)
-            if not layered and cn == "boxplus":
+            if cn == "boxplus" and layered:
+                for storage in (None, torch.bfloat16):
+                    clusters.add(dec.lifted.k3_layout(storage).cluster)
+                    print(f"  K3 layout of ({k},{n}), "
+                          f"{'bf16' if storage else 'f32'}: "
+                          f"{k3_layout_line(dec.lifted, storage)}")
+            elif cn == "boxplus":
                 clusters.add(dec.lifted.k1_layout().cluster)
                 print(f"  K1 layout of ({k},{n}): "
                       f"{layout_line(dec.lifted)}")
@@ -311,9 +354,9 @@ def check_kernel_against_plain(dev, layered):
                           f"{ebno_db:4.1f} dB iters {iters}: "
                           f"max|kernel-plain| {max(errs):.3e} (info BER "
                           f"{ber:.2e} after {iters[-1]})")
-    if not layered and clusters != {1, 2}:
-        raise AssertionError(f"phase 3 reached K1 clusters {clusters}, "
-                             "not both layouts (1 and 2 blocks)")
+    if 1 not in clusters or max(clusters) < 2:
+        raise AssertionError(f"{kern.name} ran in clusters {clusters}, "
+                             "not both layouts (one block and a cluster)")
     return max_err
 
 
@@ -594,6 +637,9 @@ def main():
     for kern in KERNELS:
         for line in ptxas_report(kern):
             print(f"    ptxas {line}")
+            # K3 keeps every per-edge value in registers or shared memory
+            if kern is LAYERED_BP_KERNEL and local_memory_bytes(line):
+                raise AssertionError(f"K3 uses local memory: {line}")
     print(f"    FP32 (instructions, operations) on the executed path of "
           f"{function_ops}; per boxplus edge-lane update {ops_per_update}")
 
@@ -657,7 +703,7 @@ def main():
         noisy_llrs(flood.enc, FLAGSHIP["batch"], 2.5, gen)[1])
     llr_link = dec.recover_llrs(
         noisy_llrs(dec.encoder, LINK["batch"], 3.0, gen)[1])
-    # BG1 at Z=384, the code K1's cluster layout exists for
+    # BG1 at Z=384, the code the kernels' cluster layouts exist for
     bg1 = LDPC5GDecoder(LDPC5GEncoder(8448, 16896, device=dev),
                         cn_update="boxplus", engine="lifted", device=dev)
     llr_bg1 = bg1.recover_llrs(
@@ -669,10 +715,17 @@ def main():
                         else (20, "BP-20"))
         cases.append((name, flood.dec.lifted, llr_big, it,
                       f"n=12288 x 2048, {schedule} boxplus"))
-    cases.append(("ldpc_lifted_bp", dec.lifted, llr_link, 20,
-                  "n=2048 x 2000, BP-20 boxplus"))
-    cases.append(("ldpc_lifted_bp", bg1.lifted, llr_bg1, 20,
-                  "n=16896 x 2048, BP-20 boxplus"))
+    cases += [
+        ("ldpc_lifted_bp", dec.lifted, llr_link, 20,
+         "n=2048 x 2000, BP-20 boxplus"),
+        ("ldpc_layered_bp", dec.lifted, llr_link, 10,
+         "n=2048 x 2000, layered-10 boxplus"),
+        ("ldpc_lifted_bp", bg1.lifted, llr_bg1, 20,
+         "n=16896 x 2048, BP-20 boxplus"),
+        ("ldpc_layered_bp", bg1.lifted, llr_bg1, 10,
+         "n=16896 x 2048, layered-10 boxplus"),
+        ("ldpc_layered_bp_bf16", bg1.lifted, llr_bg1, 10,
+         "n=16896 x 2048, layered-10 boxplus")]
     for name, lift, llr, it, shape in cases:
         ker, plain = variant_calls(name, lift)
         err = assert_identical(ker(llr, it), plain(llr, it),
@@ -688,10 +741,7 @@ def main():
               f"({bound[1]}), {100 * bound[0] / min(k1, k2):.1f} % of it; "
               f"FP32 issue {bound[2]:.3f} ms, "
               f"{100 * bound[2] / min(k1, k2):.1f} %")
-        if name.startswith("ldpc_lifted_bp"):
-            print(f"      K1 launch: {llr.shape[0]} codewords x "
-                  f"{layout_line(lift)}; "
-                  f"{llr.shape[0] * lift.k1_layout().cluster} blocks")
+        print(f"      {launch_line(name, lift, llr.shape[0])}")
         if name not in times:  # the kernels line: flagship shape
             times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
             shapes[name] = shape

@@ -89,7 +89,7 @@ using sionna_ldpc::signf;
 // line.
 #if !defined(SIONNA_K1_MAX_THREADS) || !defined(SIONNA_K1_MAX_CLUSTER) || \
     !defined(SIONNA_K1_REG_UNITS) || !defined(SIONNA_K1_REG_UNITS_CLUSTER) || \
-    !defined(SIONNA_K1_ROW_DEGREE_MASK) || !defined(SIONNA_K1_PLAN_ARRAYS)
+    !defined(SIONNA_K1_PLAN_ARRAYS)
 #error "build with the defines of LIFTED_BP_KERNEL (sionna_tpu_torch/_build.py)"
 #endif
 constexpr int kMaxThreads = SIONNA_K1_MAX_THREADS;  // threads per block
@@ -175,80 +175,21 @@ __device__ __forceinline__ float cn_unit(float* state,
     sign_tot = k == 0 ? s : sign_tot * s;
   }
   float reg_c2v = 0.f;
-  auto emit = [&](int k, float ext_mag) {
+  sionna_ldpc::cn_extrinsic<D, kForm>(val, mode, offset, [&](int k,
+                                                             float mag) {
     const float sgn = (neg >> k) & 1u ? -1.f : 1.f;
-    const float c2v = sign_tot * sgn * fminf(ext_mag, clip) *
+    const float c2v = sign_tot * sgn * fminf(mag, clip) *
                       ((act >> k) & 1u ? 1.f : 0.f);
     if (k == reg_pos) {
       reg_c2v = c2v;
     } else {
       *slot_ptr<kMulti>(state, slot[k], z, l) = c2v;
     }
-  };
-  if (mode == 0) {
-    const float hi = (float)(1.0 - 1e-7);
-    // backward products bwd[k] = t[k] * ... * t[D-1], accumulated from
-    // the end as ((t[D-1] * t[D-2]) * t[D-3]) ...
-    float bwd[D];
-    bwd[D - 1] = val[D - 1];
-#pragma unroll
-    for (int k = D - 2; k >= 0; --k) bwd[k] = bwd[k + 1] * val[k];
-    float fwd = 1.f;  // t[0] * ... * t[k-1]
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      float ext = hi;
-      if constexpr (D > 1) {
-        if (k == 0) {
-          ext = fminf(bwd[1], hi);
-        } else if (k == D - 1) {
-          ext = fminf(fwd, hi);
-        } else {
-          ext = fminf(fwd * bwd[k + 1 < D ? k + 1 : k], hi);
-        }
-      }
-      fwd = k == 0 ? val[0] : fwd * val[k];
-      float mag;
-      if constexpr (kForm == sionna_ldpc::kRatio) {
-        mag = logf((1.f + ext) / (1.f - ext));
-      } else {
-        mag = log1pf(ext) - log1pf(-ext);
-      }
-      emit(k, mag);
-    }
-  } else {
-    float min1 = val[0];
-#pragma unroll
-    for (int k = 1; k < D; ++k) min1 = fminf(min1, val[k]);
-    float min2 = 1e30f;
-    int n_min = 0;
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      min2 = fminf(min2, val[k] > min1 ? val[k] : 1e30f);
-      n_min += val[k] == min1;
-    }
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      float ext = (val[k] == min1 && n_min == 1) ? min2 : min1;
-      if (offset > 0.f) ext = fmaxf(ext - offset, 0.f);
-      emit(k, ext);
-    }
-  }
+  });
   return reg_c2v;
 }
 
-// The row degrees cn_dispatch has a case for: those of the 5G base
-// graphs' rows (3-10 and 19), and 1-2; K1_ROW_DEGREES on the host.
-#define SIONNA_CN_DEGREES(X) \
-  X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(19)
-#define SIONNA_CN_BIT(D) | (1u << D)
-static_assert((0u SIONNA_CN_DEGREES(SIONNA_CN_BIT)) ==
-                  static_cast<unsigned>(SIONNA_K1_ROW_DEGREE_MASK),
-              "the check-node cases differ from K1_ROW_DEGREES");
-#undef SIONNA_CN_BIT
-
-// cn_unit for a runtime degree d of SIONNA_CN_DEGREES; one case per
-// degree keeps every per-edge value at a compile-time index, in a
-// register.
+// cn_unit for a runtime degree d of SIONNA_CN_DEGREES (ldpc_cn.cuh).
 template <int kForm, bool kMulti>
 __device__ __forceinline__ float cn_dispatch(int d, float* state,
                                              const int* slot,

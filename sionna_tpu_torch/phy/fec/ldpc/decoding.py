@@ -18,7 +18,8 @@ PyTorch counterpart of ``sionna_tpu/phy/fec/ldpc/decoding.py``:
   ``_lifted_pallas_decode``: :func:`lifted_bp_cuda` (flooding,
   ``csrc/ldpc_lifted_bp.cu``, in the on-chip layout that
   :func:`lifted_bp_layout` plans) and :func:`layered_bp_cuda` (layered,
-  ``csrc/ldpc_layered_bp.cu``), each with the Pallas kernel's bf16
+  ``csrc/ldpc_layered_bp.cu``, in the on-chip layout that
+  :func:`layered_bp_layout` plans), each with the Pallas kernel's bf16
   message storage and (flooding) its ``ratio`` form of the boxplus
   magnitude.
 
@@ -49,8 +50,9 @@ __all__ = ["LDPCBPDecoder", "LDPC5GDecoder", "cn_update_minsum",
            "cn_update_offset_minsum", "cn_update_tanh", "cn_update_phi",
            "vn_update_sum", "cn_node_update_identity",
            "vn_node_update_identity", "LDPC5GLiftedBP", "lifted_bp_cuda",
-           "layered_bp_cuda", "lifted_bp_layout",
-           "LiftedBPLayout", "LIFTED_BP_KERNEL", "LAYERED_BP_KERNEL"]
+           "layered_bp_cuda", "lifted_bp_layout", "layered_bp_layout",
+           "LiftedBPLayout", "LayeredBPLayout", "LIFTED_BP_KERNEL",
+           "LAYERED_BP_KERNEL"]
 
 _LIFTED_CN_UPDATES = ("minsum", "offset-minsum", "boxplus", "boxplus-phi")
 
@@ -60,21 +62,38 @@ _F = ctypes.c_float
 
 #: Shared memory one thread block may use on an H100, in bytes.
 SMEM_PER_BLOCK = 232_448
-# Limits of the K1 kernel's layouts. They are defined here only: nvcc
-# gets them as defines, from which csrc/ldpc_lifted_bp.cu takes its
-# constants. Threads per block, blocks per cluster, register-edge CN units
-# per thread in one block and in a cluster (whose slot addresses take
-# more registers), and the row degrees the kernel has a check-node case
-# for (it checks its cases against them): those of the 5G base graphs'
-# rows, 3-10 and 19, and 1-2.
+#: Shared memory of one SM of an H100, of which each resident block takes
+#: 1 KB besides its own, in bytes.
+SMEM_PER_SM = 233_472
+# Limits of the kernels' layouts. They are defined here only: nvcc gets
+# them as defines, from which csrc/ldpc_lifted_bp.cu (K1),
+# csrc/ldpc_layered_bp.cu (K3) and their shared check-node code
+# csrc/ldpc_cn.cuh take their constants. The row degrees the check-node
+# code has a case for (it checks its cases against them): those of the
+# 5G base graphs' rows, 3-10 and 19, and 1-2.
+CN_ROW_DEGREES = frozenset(range(1, 11)) | {19}
+# K1: threads per block, blocks per cluster, register-edge CN units per
+# thread in one block and in a cluster (whose slot addresses take more
+# registers).
 K1_MAX_THREADS = 512
 K1_MAX_CLUSTER = 8
 K1_REG_UNITS = {False: 12, True: 8}  # by cluster layout
-K1_ROW_DEGREES = frozenset(range(1, 11)) | {19}
 #: The arrays of K1's plan, in order; the plan starts with their offsets.
 K1_PLAN_ARRAYS = ("row_ptr", "row_slot", "row_range", "col_ptr",
                   "col_slot", "col_shift", "reg_rows", "reg_pos", "reg_col",
                   "reg_shift", "plain_rows", "vn_cols")
+# K3: threads per block (its launch bound), the threads the layout aims
+# at per SM over the blocks the SM holds (one per lane fastest at the
+# n=2048 code: PERF.md, Findings), and blocks per cluster (the portable
+# most: BG1 at Z=384 and rate 1/3 takes 5 in f32).
+K3_MAX_THREADS = 576
+K3_SM_THREADS = 576
+K3_MAX_CLUSTER = 8
+#: The arrays of K3's plan, in order; the plan starts with their offsets,
+#: and every array with a multiple of 4 ints (K3 reads "edge" as int4).
+K3_PLAN_ARRAYS = ("edge", "step_ptr", "row_ptr")
+_CN_DEFINES = {"SIONNA_CN_ROW_DEGREE_MASK":
+               sum(1 << d for d in CN_ROW_DEGREES)}
 
 #: The CUDA kernel of the lifted BP decoder (built on first use).
 LIFTED_BP_KERNEL = CudaKernel(
@@ -91,8 +110,8 @@ LIFTED_BP_KERNEL = CudaKernel(
         "SIONNA_K1_MAX_CLUSTER": K1_MAX_CLUSTER,
         "SIONNA_K1_REG_UNITS": K1_REG_UNITS[False],
         "SIONNA_K1_REG_UNITS_CLUSTER": K1_REG_UNITS[True],
-        "SIONNA_K1_ROW_DEGREE_MASK": sum(1 << d for d in K1_ROW_DEGREES),
         "SIONNA_K1_PLAN_ARRAYS": len(K1_PLAN_ARRAYS),
+        **_CN_DEFINES,
     })
 
 #: The CUDA kernel of the layered lifted BP decoder (built on first use).
@@ -101,10 +120,15 @@ LAYERED_BP_KERNEL = CudaKernel(
     source="ldpc_layered_bp.cu",
     replaces="sionna_tpu/phy/fec/ldpc/decoding.py:1203",
     functions={
-        "sionna_ldpc_layered_bp": ([_P] * 8 + [_I] * 6 + [_F, _F]
-                                   + [_I] * 2 + [_P], _I),
-        "sionna_ldpc_max_degree": ([], _I),
+        "sionna_ldpc_layered_bp": ([_P] * 3 + [_I] * 9 + [_F, _F]
+                                   + [_I] * 4 + [_P], _I),
         "sionna_cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+    defines={
+        "SIONNA_K3_MAX_THREADS": K3_MAX_THREADS,
+        "SIONNA_K3_MAX_CLUSTER": K3_MAX_CLUSTER,
+        "SIONNA_K3_PLAN_ARRAYS": len(K3_PLAN_ARRAYS),
+        **_CN_DEFINES,
     })
 
 
@@ -948,18 +972,15 @@ class LDPC5GLiftedBP(nn.Module):
 
         row_ptr, row_ids = _csr(self._row_edges, n_row_blocks)
         col_ptr, col_ids = _csr(self._col_edges, n_col_blocks)
-        self._max_degree = max(
-            max(len(v) for v in self._row_edges.values()),
-            max(len(v) for v in self._col_edges.values()))
         buf("masks", np.stack(self._edge_mask), torch.float32)  # [E_b, Z]
-        buf("edge_col", [c for (_, c, _) in edges])
-        buf("edge_shift", [s for (_, _, s) in edges])
         buf("row_ptr", row_ptr)
         buf("row_edge_ids", row_ids)
         buf("col_ptr", col_ptr)
         buf("col_edge_ids", col_ids)
         self._k1_layout = None
         self._k1_plans = {}  # K1's plan by device (k1_plan)
+        self._k3_layouts = {}  # K3's layout by storage dtype (k3_layout)
+        self._k3_plans = {}  # K3's plan by device (k3_plan)
 
     def k1_layout(self):
         """:func:`lifted_bp_layout` of this code (cached)."""
@@ -975,6 +996,23 @@ class LDPC5GLiftedBP(nn.Module):
             self._k1_plans[device] = torch.as_tensor(self.k1_layout().plan,
                                                      device=device)
         return self._k1_plans[device]
+
+    def k3_layout(self, storage_dtype=None):
+        """:func:`layered_bp_layout` of this code for c2v storage
+        ``storage_dtype`` (cached)."""
+        if storage_dtype not in self._k3_layouts:
+            self._k3_layouts[storage_dtype] = layered_bp_layout(
+                self, storage_dtype)
+        return self._k3_layouts[storage_dtype]
+
+    def k3_plan(self, device):
+        """The plan of :meth:`k3_layout` (the same for both storage
+        types) as an int32 tensor on ``device`` (cached)."""
+        device = torch.device(device)
+        if device not in self._k3_plans:
+            self._k3_plans[device] = torch.as_tensor(
+                _layered_bp_plan(self).plan, device=device)
+        return self._k3_plans[device]
 
     def numpy_structure(self):
         """The lifted graph as NumPy arrays, for
@@ -1152,6 +1190,32 @@ def _cyclic_range(mask):
     return (int(starts[0]), n)
 
 
+def _check_rows_and_ranges(lifted, rows, name):
+    """Each edge's cyclic active-lane range (``_cyclic_range``); raises
+    ValueError for a row degree outside ``CN_ROW_DEGREES`` or a mask that
+    is not one cyclic range, which no layout of kernel ``name`` takes."""
+    degrees = {len(r) for r in rows if r} - CN_ROW_DEGREES
+    if degrees:
+        raise ValueError(f"no {name} layout takes a row degree of "
+                         f"{sorted(degrees)}")
+    ranges = tuple(_cyclic_range(m) for m in lifted._edge_mask)
+    if any(r is None for r in ranges):
+        raise ValueError(f"no {name} layout takes an edge mask that is not "
+                         "one cyclic range of lanes")
+    return ranges
+
+
+def _pack_plan(arrays, align=1):
+    """The int32 plan of a list of int arrays: their offsets, then the
+    arrays, each (and the offsets) zero-padded to a multiple of ``align``
+    ints."""
+    parts = [np.zeros(len(arrays), np.int64)] + \
+        [np.asarray(a, np.int64) for a in arrays]
+    parts = [np.pad(x, (0, -len(x) % align)) for x in parts]
+    parts[0][:len(arrays)] = np.cumsum([len(x) for x in parts])[:-1]
+    return np.concatenate(parts).astype(np.int32)
+
+
 def lifted_bp_layout(lifted):
     """The layout of K1 (``csrc/ldpc_lifted_bp.cu``) for the code of
     ``lifted``: which edges keep their message slots in registers, how
@@ -1176,7 +1240,7 @@ def lifted_bp_layout(lifted):
       active lanes.
 
     Raises ValueError for a code that no layout takes (a row degree
-    outside ``K1_ROW_DEGREES``, a mask that is not one cyclic range, no
+    outside ``CN_ROW_DEGREES``, a mask that is not one cyclic range, no
     cluster of up to ``K1_MAX_CLUSTER`` blocks that holds the state)."""
     z = lifted._z
     edges = lifted._edges
@@ -1184,14 +1248,7 @@ def lifted_bp_layout(lifted):
     n_rows, n_cols = lifted._n_row_blocks, lifted._n_col_blocks
     rows = [lifted._row_edges.get(r, []) for r in range(n_rows)]
     cols = [lifted._col_edges.get(c, []) for c in range(n_cols)]
-    degrees = {len(r) for r in rows if r} - K1_ROW_DEGREES
-    if degrees:
-        raise ValueError(f"no K1 layout takes a row degree of "
-                         f"{sorted(degrees)}")
-    ranges = tuple(_cyclic_range(m) for m in lifted._edge_mask)
-    if any(r is None for r in ranges):
-        raise ValueError("no K1 layout takes an edge mask that is not one "
-                         "cyclic range of lanes")
+    ranges = _check_rows_and_ranges(lifted, rows, "K1")
 
     reg_of_row = {}
     for r, eids in enumerate(rows):
@@ -1250,9 +1307,7 @@ def lifted_bp_layout(lifted):
         plain_rows,
         vn_cols,
     ]
-    offsets = np.cumsum([len(arrays)] + [len(a) for a in arrays])[:-1]
-    plan = np.concatenate([offsets] + [np.asarray(a, np.int64)
-                                       for a in arrays]).astype(np.int32)
+    plan = _pack_plan(arrays)
     assert len(arrays) == len(K1_PLAN_ARRAYS) and plan.size == plan_len
     return LiftedBPLayout(
         threads=threads, cluster=cluster,
@@ -1260,6 +1315,137 @@ def lifted_bp_layout(lifted):
         reg_edges=reg_edges, slots=tuple(slots), ranges=ranges,
         reg_units_per_thread=per_thread, n_reg_rows=len(reg_rows),
         n_plain_rows=len(plain_rows), n_vn_cols=len(vn_cols), plan=plan)
+
+
+class LayeredBPLayout(NamedTuple):
+    """How the layered kernel K3 lays out one code's message state on the
+    card (see :func:`layered_bp_layout`)."""
+
+    threads: int          # threads per block: a multiple of lanes
+    cluster: int          # blocks per codeword (a thread-block cluster)
+    smem_bytes: int       # dynamic shared memory per block
+    lanes: int            # lanes per block: block b owns [b * lanes, ...)
+    steps: tuple          # row steps: (first row, end row), rows in order
+    step_degree: int      # edges of the largest step: the scratch's rows
+    slots: tuple          # per edge: its c2v slot (position in row order)
+    ranges: tuple         # per edge: cyclic active lanes (lo, length)
+    plan: np.ndarray      # int32 tables the kernel copies to shared memory
+
+
+def _row_steps(lifted, rows):
+    """The rows in order, cut into steps of consecutive rows that share no
+    column (each step as (first row, end row)): within a step the rows'
+    updates touch disjoint posterior columns, so running them together
+    computes what running them one after another does."""
+    steps, start, used = [], 0, set()
+    for r, eids in enumerate(rows):
+        cols = {lifted._edges[e][1] for e in eids}
+        if cols & used:
+            steps.append((start, r))
+            start, used = r, set()
+        used |= cols
+    steps.append((start, len(rows)))
+    return tuple(steps)
+
+
+class _LayeredBPPlan(NamedTuple):
+    """What K3's layout takes from the code alone, whatever the storage
+    type (see :func:`_layered_bp_plan`)."""
+
+    steps: tuple
+    step_degree: int
+    slots: tuple
+    ranges: tuple
+    plan: np.ndarray
+
+
+def _layered_bp_plan(lifted):
+    """K3's row steps, the edges of its largest step, each edge's c2v slot
+    and cyclic active-lane range, and the int32 plan (the same for both
+    storage types; see :func:`layered_bp_layout`). Raises ValueError for a
+    row degree outside ``CN_ROW_DEGREES`` or a mask that is not one cyclic
+    range."""
+    z = lifted._z
+    edges = lifted._edges
+    n_rows = lifted._n_row_blocks
+    rows = [lifted._row_edges.get(r, []) for r in range(n_rows)]
+    ranges = _check_rows_and_ranges(lifted, rows, "K3")
+    steps = _row_steps(lifted, rows)
+    row_ptr, row_ids = _csr(dict(enumerate(rows)), n_rows)
+    arrays = [
+        [x for e in row_ids for x in (edges[e][1] * z + edges[e][2],
+                                      z - edges[e][2], *ranges[e])],
+        [first for first, _ in steps] + [n_rows],
+        row_ptr,
+    ]
+    plan = _pack_plan(arrays, align=4)
+    assert len(arrays) == len(K3_PLAN_ARRAYS)
+    slots = [None] * len(edges)
+    for p, e in enumerate(row_ids):
+        slots[e] = p
+    return _LayeredBPPlan(
+        steps=steps,
+        step_degree=max(row_ptr[end] - row_ptr[first]
+                        for first, end in steps),
+        slots=tuple(slots), ranges=ranges, plan=plan)
+
+
+def layered_bp_layout(lifted, storage_dtype=None):
+    """The layout of K3 (``csrc/ldpc_layered_bp.cu``) for the code of
+    ``lifted`` with c2v stored as ``storage_dtype`` (None: f32, or
+    torch.bfloat16): how many blocks share one codeword, the lanes each
+    owns, the shared-memory bytes, the threads per block, the row steps
+    and the int32 plan the kernel reads. Plain Python, run once per
+    decoder and storage type.
+
+    - Row steps: consecutive rows that share no column run as one step
+      (``_row_steps``; 21 steps for the 24 rows of the n=12288 code).
+    - Shared memory of each block: two mbarriers (16 B), the whole posterior
+      (f32; in a cluster each block holds a replica), a [step degree,
+      lanes] f32 check-node scratch, the plan, and one c2v slot per edge
+      for its lanes (4 or 2 B a lane).
+    - Cluster: the fewest blocks (up to ``K3_MAX_CLUSTER``) whose shared
+      memory (``SMEM_PER_BLOCK``) holds that when the Z lanes of the c2v
+      slots are split into equal runs, one per block (2 for f32 at
+      n=12288, 3 for f32 at n=16896, 5 for f32 at n=25344).
+    - Threads: m per lane, each on one lane throughout, with m the most
+      that keeps the threads of the blocks one SM holds (by shared
+      memory) within ``K3_SM_THREADS`` and a block's within
+      ``K3_MAX_THREADS``, at least 1 and at most the step degree.
+    - The plan (``_layered_bp_plan``): per edge in row order (its c2v
+      slot) a record of four ints, column * Z + shift and Z - shift (the
+      posterior offset and the lane where it wraps) and its cyclic
+      active-lane range (lo, length), which replaces the edge's mask; the
+      step pointers (into the rows), and the row pointers.
+
+    Raises ValueError for a code that no layout takes (a row degree
+    outside ``CN_ROW_DEGREES``, a mask that is not one cyclic range, a
+    state too large for ``K3_MAX_CLUSTER`` blocks)."""
+    _check_knobs(storage_dtype, "log1p")
+    z = lifted._z
+    n_cols, n_edges = lifted._n_col_blocks, len(lifted._edges)
+    tables = _layered_bp_plan(lifted)
+    msg_bytes = 4 if storage_dtype is None else 2
+    for cluster in range(1, K3_MAX_CLUSTER + 1):
+        lanes = -(-z // cluster)
+        if (cluster - 1) * lanes >= z:  # a block would own no lane
+            continue
+        smem = 16 + (n_cols * z + tables.step_degree * lanes
+                     + tables.plan.size) * 4 + n_edges * lanes * msg_bytes
+        if smem <= SMEM_PER_BLOCK and lanes <= K3_MAX_THREADS:
+            break
+    else:
+        raise ValueError(
+            f"no K3 layout takes this code: {n_cols} columns and "
+            f"{n_edges} edges of {z} lanes need more than "
+            f"{K3_MAX_CLUSTER} blocks")
+    blocks_per_sm = max(1, SMEM_PER_SM // (smem + 1024))
+    per_lane = max(1, min(tables.step_degree, K3_MAX_THREADS // lanes,
+                          K3_SM_THREADS // (blocks_per_sm * lanes)))
+    return LayeredBPLayout(
+        threads=per_lane * lanes, cluster=cluster, smem_bytes=smem,
+        lanes=lanes, steps=tables.steps, step_degree=tables.step_degree,
+        slots=tables.slots, ranges=tables.ranges, plan=tables.plan)
 
 
 def lifted_bp_cuda(lifted, llr_int, num_iter, storage_dtype=None,
@@ -1306,36 +1492,33 @@ def layered_bp_cuda(lifted, llr_int, num_iter, storage_dtype=None):
     ``csrc/ldpc_layered_bp.cu`` (K3) on the current stream.
 
     Takes and returns what :func:`lifted_bp_cuda` does, without
-    ``atanh_form`` (the layered schedule uses the log1p form). The c2v
-    state lives in a [batch, E_b, Z] scratch (f32 or bf16) allocated
-    here. Raises on anything the kernel does not take; it has no
-    backward."""
+    ``atanh_form`` (the layered schedule uses the log1p form), in the
+    layout of :func:`layered_bp_layout` for ``storage_dtype``: the
+    posterior and the c2v state (f32 or bf16) live in shared memory, so
+    nothing but the output is allocated here. Raises on anything the
+    kernel does not take; it has no backward."""
     kern = LAYERED_BP_KERNEL
     _check_llrs(kern, lifted, llr_int, num_iter, storage_dtype, "log1p")
-    bf16 = storage_dtype is not None
     z = lifted._z
     batch = llr_int.shape[0]
     n_cols = lifted._n_col_blocks
-    n_edges = len(lifted._edges)
     llr_p = F.pad(llr_int, (0, n_cols * z - lifted._num_vns)).contiguous()
     out = torch.empty_like(llr_p)
     if batch == 0:
         return out[:, :lifted._num_vns]
-    c2v = torch.empty((batch, n_edges, z), device=llr_int.device,
-                      dtype=torch.bfloat16 if bf16 else torch.float32)
     lib = kern.library()
-    if lifted._max_degree > lib.sionna_ldpc_max_degree():
-        raise ValueError(f"base-graph degree {lifted._max_degree} exceeds "
-                         "the kernel's bound")
-    tables = (lifted.masks, lifted.edge_col, lifted.edge_shift,
-              lifted.row_ptr, lifted.row_edge_ids)
+    layout = lifted.k3_layout(storage_dtype)
+    plan = lifted.k3_plan(llr_int.device)
     with torch.cuda.device(llr_int.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.sionna_ldpc_layered_bp(
-            llr_p.data_ptr(), *(t.data_ptr() for t in tables),
-            out.data_ptr(), c2v.data_ptr(), batch, lifted._n_row_blocks,
-            n_cols, n_edges, z, num_iter, lifted._llr_max, lifted._offset,
-            0 if lifted._cn_mode == "boxplus" else 1, int(bf16), stream)
+            llr_p.data_ptr(), plan.data_ptr(), out.data_ptr(), batch,
+            len(layout.steps), n_cols, len(lifted._edges), z, layout.lanes,
+            layout.step_degree, plan.numel(), num_iter,
+            lifted._llr_max, lifted._offset,
+            0 if lifted._cn_mode == "boxplus" else 1,
+            int(storage_dtype is not None), layout.threads, layout.cluster,
+            stream)
     kern.check(err)
     kern.count(_variant(storage_dtype, "log1p"))
     return out[:, :lifted._num_vns]
