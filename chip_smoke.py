@@ -44,7 +44,7 @@ the boxplus magnitude):
    2048 (the cluster layouts), each output first held identical to the
    plain one at that shape, with its bound and share of it and the
    kernel's launch configuration; the flagship's Mbit/s and per-stage
-   split, the coded-AWGN link's Mbit/s;
+   split, the device busy share, the coded-AWGN link's Mbit/s;
 9. runs the decoder-kernel tuning sweep
    (``python -m sionna_tpu_torch.tools.ldpc_tune --quick``), the entry
    point of the bf16 and ratio variants: each launched, hard-decision
@@ -59,7 +59,22 @@ the boxplus magnitude):
     phase-5 bands, and its ms per decoder call beside K1's;
 12. takes three SGD steps of weighted BP (``WeightedBPCallback`` weights
     on the v2c messages of the link's decoder, segment engine, BCE loss)
-    with every tensor on the card: finite loss and gradients.
+    with every tensor on the card: finite loss and gradients;
+13. holds the demapper's separable-PAM path (the default for Gray QAM)
+    against its table path (a ``points`` override) at the flagship's
+    shape (batch 2048 x 3072 16-QAM symbols, app and maxlog): the LLRs
+    within the bound of ``tests/test_torch_mapping.py``, and each path's
+    ms per call in turns;
+14. runs the flagship's receiver variants through ``sim_ber`` at 8 dB,
+    BP-20 through K1: LS with linear interpolation and the LMMSE
+    equalizer, time-averaged linear and ZF, ``LMMSEInterpolator("t-f")``
+    from the TDL-A covariances and LMMSE (batch 256, its memory; peak
+    printed), nearest-neighbour and MF: BLER bands from a JAX run of the
+    same links (``tools/flagship_rx_bler.py``), one K1 launch per decoder
+    call, every tensor on the card, each estimator against itself on the
+    CPU, the estimation and equalization stages timed; the first again
+    from a checkpoint (no decoder call, the same BLER) and the last with
+    a ``Profiler``.
 
 Prints the kernels' JSON line (one entry per kernel variant, ``ms`` /
 ``plain_ms`` / ``bound_ms`` at the entry's ``shape``), the card again,
@@ -68,6 +83,7 @@ Run from the repository root: ``python3 chip_smoke.py``.
 """
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -91,9 +107,12 @@ from sionna_tpu_torch.phy.fec.ldpc.decoding import (LAYERED_BP_KERNEL,
 from sionna_tpu_torch.phy.fec.linear import LinearEncoder
 from sionna_tpu_torch.phy.fec.utils import load_parity_check_examples, pcm2gm
 from sionna_tpu_torch.phy.mimo import StreamManagement
-from sionna_tpu_torch.phy.ofdm import (LMMSEEqualizer, LSChannelEstimator,
-                                       ResourceGrid, ResourceGridMapper)
-from sionna_tpu_torch.phy.utils import ebnodb2no, sim_ber
+from sionna_tpu_torch.phy.ofdm import (LMMSEEqualizer, LMMSEInterpolator,
+                                       LSChannelEstimator, MFEqualizer,
+                                       ResourceGrid, ResourceGridMapper,
+                                       ZFEqualizer, tdl_freq_cov_mat,
+                                       tdl_time_cov_mat)
+from sionna_tpu_torch.phy.utils import Profiler, ebnodb2no, sim_ber
 from sionna_tpu_torch.tools import ldpc_tune, sass_ops
 
 LINK = dict(k=1024, n=2048, nbps=4, batch=2000, num_iter=20)
@@ -139,6 +158,26 @@ FLAGSHIP_JAX = {("flooding", 8.0): (12171, 24576),
 # batch 10000, keys PRNGKey(1000 + i) for i < 20): (block errors, blocks)
 GENERIC_JAX = {("generic", 1.5): (27875, 200000),
                ("generic", 2.0): (3657, 200000)}
+# The flagship's receiver variants (phase 14): (interpolation,
+# equalizer, batch, MC iterations); "lmmse" is LMMSEInterpolator("t-f")
+# from the TDL-A covariances, whose frequency pass solves a 256 x 256
+# f64 system per OFDM symbol and batch element (batch 256: its memory)
+RECEIVERS = {"lin_lmmse": ("lin", "lmmse", 2048, 8),
+             "lintavg_zf": ("lin_time_avg", "zf", 2048, 8),
+             "lmmse_lmmse": ("lmmse", "lmmse", 256, 64),
+             "nn_mf": ("nn", "mf", 2048, 8)}
+# Their BLER at 8 dB (flooding BP-20) from the JAX package's run of the
+# same links on the CPU (tools/flagship_rx_bler.py: seeds 0 and 1 at
+# --blocks 8192 --batch 64; the LMMSE interpolation seeds 0-7 at --blocks
+# 4096 --batch 16): (block errors, blocks)
+RECEIVERS_JAX = {("lin_lmmse", 8.0): (6093, 16384),
+                 ("lintavg_zf", 8.0): (2118, 16384),
+                 ("lmmse_lmmse", 8.0): (265, 32768),
+                 ("nn_mf", 8.0): (8095, 16384)}
+# The separable demap against the table demap: a few ULP of the largest
+# exponent of the symbol, max_p |y - p|^2 / no (SEP_TABLE_ULPS of
+# tests/test_torch_mapping.py)
+SEP_TABLE_ULPS = 8
 
 
 def bler_band(schedule, ebno_db):
@@ -148,6 +187,9 @@ def bler_band(schedule, ebno_db):
     if schedule == "generic":
         errors, blocks = GENERIC_JAX[(schedule, ebno_db)]
         n_port = GENERIC["mc_iter"] * GENERIC["batch"]
+    elif schedule in RECEIVERS:
+        errors, blocks = RECEIVERS_JAX[(schedule, ebno_db)]
+        n_port = RECEIVERS[schedule][2] * RECEIVERS[schedule][3]
     else:
         errors, blocks = FLAGSHIP_JAX[(schedule, ebno_db)]
         n_port = FLAGSHIP["mc_iter"] * FLAGSHIP["batch"]
@@ -454,9 +496,13 @@ class Flagship:
     256-FFT grid at 30 kHz with CP 16 and Kronecker pilots on symbols
     [2, 11], 16-QAM, rate-1/2 5G LDPC (n=12288) with a row-column
     interleaver, LS estimation with nearest-neighbour interpolation,
-    LMMSE equalization, APP demapping and a boxplus decoder."""
+    LMMSE equalization, APP demapping and a boxplus decoder.
+    ``receiver`` = (interpolation, equalizer) swaps the receiver:
+    interpolation "nn", "lin", "lin_time_avg" or "lmmse"
+    (LMMSEInterpolator("t-f") from the TDL-A covariances), equalizer
+    "lmmse", "zf" or "mf"."""
 
-    def __init__(self, dev, **decoder_kw):
+    def __init__(self, dev, receiver=("nn", "lmmse"), **decoder_kw):
         nbps = FLAGSHIP["nbps"]
         self.dev = dev
         self.rg = rg = ResourceGrid(
@@ -474,16 +520,33 @@ class Flagship:
         self.channel = OFDMChannel(
             TDL("A", 100e-9, 3.5e9, min_speed=3, max_speed=3), rg,
             normalize_channel=True, device=dev)
-        self.est = LSChannelEstimator(rg, interpolation_type="nn",
-                                      device=dev)
-        self.equ = LMMSEEqualizer(rg, StreamManagement(np.array([[1]]), 1),
-                                  device=dev)
+        interp, eq = self.receiver = receiver
+        self.interpolator = None
+        if interp == "lmmse":
+            self.interpolator = LMMSEInterpolator(
+                rg.pilot_pattern,
+                tdl_time_cov_mat("A", 3 / 3.6, 3.5e9,
+                                 rg.ofdm_symbol_duration, 14),
+                tdl_freq_cov_mat("A", 30e3, 256, 100e-9), order="t-f")
+        self.est = self.estimator(dev)
+        self.equ = {"lmmse": LMMSEEqualizer, "zf": ZFEqualizer,
+                    "mf": MFEqualizer}[eq](
+                        rg, StreamManagement(np.array([[1]]), 1), device=dev)
         self.demapper = Demapper("app", "qam", nbps, device=dev)
         self.dec = LDPC5GDecoder(self.enc, hard_out=True,
                                  cn_update="boxplus", device=dev,
                                  **decoder_kw)
         self.calls = 0
         self.devices = set()
+
+    def estimator(self, dev):
+        """The link's channel estimator, built on ``dev``."""
+        if self.interpolator is not None:
+            return LSChannelEstimator(self.rg, interpolator=self.interpolator,
+                                      device=dev)
+        return LSChannelEstimator(self.rg,
+                                  interpolation_type=self.receiver[0],
+                                  device=dev)
 
     def no(self, ebno_db):
         return ebnodb2no(ebno_db, FLAGSHIP["nbps"], FLAGSHIP["rate"],
@@ -510,8 +573,9 @@ class Flagship:
         events around the stages, over ``reps`` iterations after one
         warm-up."""
         names = ["source+encode+map+RG map", "channel generation",
-                 "channel application and noise", "LS estimation", "LMMSE",
-                 "demap", "decode"]
+                 "channel application and noise",
+                 f"estimation ({self.receiver[0]})",
+                 f"equalization ({self.receiver[1]})", "demap", "decode"]
         total = np.zeros(len(names))
         for rep in range(reps + 1):
             ev = [torch.cuda.Event(enable_timing=True)
@@ -553,6 +617,27 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_busy(link, batch, iters):
+    """(CUDA time, wall time) in ms of ``iters`` MC iterations of
+    ``link`` under ``torch.profiler``, after 3 warm-up iterations; the
+    CUDA time is the sum of the device-side events' self times (the
+    kernels and copies, each counted once)."""
+    for _ in range(3):
+        link(batch, 5.0)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            link(batch, 5.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy / 1e3, wall * 1e3
 
 
 def in_turns(ker, plain, ker_reps, plain_reps):
@@ -606,6 +691,147 @@ def run_flagship(link, schedule, snrs):
     if link.devices != {"cuda"}:
         raise AssertionError(f"flagship tensors on {link.devices}")
     return launches
+
+
+def demap_paths(dev, gen):
+    """Phase 13: the Demapper's separable path (its default for Gray
+    QAM) against its table path (a ``points`` override) on the same
+    inputs at the flagship's shape: 2048 x 3072 noisy 16-QAM symbols,
+    one noise variance per symbol (as the equalizer gives them). Raises
+    unless the LLRs are finite and within SEP_TABLE_ULPS of the largest
+    exponent of each symbol. Returns {method: (separable ms, table ms)}
+    per call, in turns."""
+    batch, n_sym = FLAGSHIP["batch"], 3072
+    mapper = Mapper("qam", 4, device=dev)
+    bits = torch.randint(0, 2, (batch, 1, 1, n_sym * 4), generator=gen,
+                         device=dev, dtype=torch.float32)
+    x = mapper(bits)
+    no = 0.05 * (0.5 + torch.rand(x.shape, generator=gen, device=dev))
+    y = x + torch.sqrt(no / 2) * torch.complex(
+        torch.randn(x.shape, generator=gen, device=dev),
+        torch.randn(x.shape, generator=gen, device=dev))
+    pts = mapper.constellation.points
+    largest = torch.amax(torch.abs(y[..., None] - pts) ** 2 / no[..., None],
+                         dim=-1).repeat_interleave(4, dim=-1)
+    ulp = largest * np.finfo(np.float32).eps
+    times = {}
+    for method in ("app", "maxlog"):
+        dem = Demapper(method, "qam", 4, device=dev)
+        raw = dem.constellation.raw_points
+        sep, table = dem(y, no), dem(y, no, points=raw)
+        torch.cuda.synchronize()
+        if not (bool(torch.isfinite(sep).all())
+                and bool(torch.isfinite(table).all())):
+            raise AssertionError(f"[13] {method}: LLRs not finite")
+        err = torch.abs(sep - table)
+        worst = float(torch.amax(err / ulp))
+        print(f"    {method}: max |separable - table| {float(err.max()):.3e}, "
+              f"{worst:.2f} ULP of the largest exponent (bound "
+              f"{SEP_TABLE_ULPS})")
+        if worst > SEP_TABLE_ULPS:
+            raise AssertionError(f"[13] {method}: separable and table LLRs "
+                                 f"differ by {worst} ULP")
+        (s1, s2), (t1, t2) = in_turns(lambda: dem(y, no),
+                                      lambda: dem(y, no, points=raw), 10, 10)
+        print(f"    {method}: separable {s1:.3f} / {s2:.3f} ms, table "
+              f"{t1:.3f} / {t2:.3f} ms per call (2048 x 3072 symbols)")
+        times[method] = ((s1 + s2) / 2, (t1 + t2) / 2)
+    return times
+
+
+def estimation_against_cpu(link, batch=8):
+    """Phase 14: the link's estimator on the card against the same
+    estimator on the CPU, on one received grid at 8 dB. Returns max
+    |h_hat card - h_hat CPU| and max |err_var card - err_var CPU|, each
+    over the largest magnitude; raises above 1e-5 (the LS division and
+    the linear interpolator's product run in f32 on both, a few ULP
+    apart; the LMMSE passes are f64)."""
+    no = link.no(8.0)
+    b = link.src([batch, 1, 1, link.k])
+    y = link.channel(link.rg_mapper(link.mapper(link.il(link.enc(b)))), no)
+    h_card, e_card = link.est(y, no)
+    h_cpu, e_cpu = link.estimator("cpu")(y.cpu(), no.cpu())
+    torch.cuda.synchronize()
+    errs = []
+    for card, cpu in ((h_card, h_cpu), (e_card, e_cpu)):
+        card = card.cpu().expand(cpu.shape)
+        errs.append(float((card - cpu).abs().max() / cpu.abs().max()))
+    if not max(errs) <= 1e-5:
+        raise AssertionError(f"[14] {link.receiver[0]} estimation on the "
+                             f"card against the CPU: {errs}")
+    return errs
+
+
+def run_receivers(dev):
+    """Phase 14: the flagship's receiver variants through sim_ber at 8
+    dB, flooding BP-20 (K1), each with the launch counts at 0 just
+    before and read just after; the first again from its checkpoint, the
+    last with a Profiler. Returns {variant: (BLER, stage ms)}."""
+    out = {}
+    for name, (interp, eq, batch, mc_iter) in RECEIVERS.items():
+        link = Flagship(dev, receiver=(interp, eq), num_iter=20)
+        ckpt = prof = None
+        if name == "lin_lmmse":
+            os.makedirs("build", exist_ok=True)
+            ckpt = os.path.join("build", "chip_smoke_lin_lmmse.npz")
+            if os.path.exists(ckpt):
+                os.remove(ckpt)
+        if name == "nn_mf":
+            prof = Profiler()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        _, bler = sim_ber(link, [8.0], batch_size=batch,
+                          max_mc_iter=mc_iter, early_stop=False,
+                          verbose=True, checkpoint_path=ckpt,
+                          profiler=prof)
+        torch.cuda.synchronize()
+        launches = {kern.name: dict(kern.variant_launches)
+                    for kern in KERNELS}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        bler = float(bler[0])
+        lo, hi = bler_band(name, 8.0)
+        print(f"    {name} (LS {interp}, {eq.upper()}), batch {batch}: BLER "
+              f"{bler} (band [{lo:.4f}, {hi:.4f}]), {link.calls} decoder "
+              f"calls, launches {launches}, devices {sorted(link.devices)}, "
+              f"peak memory {peak:.2f} GiB, "
+              f"{time.perf_counter() - t0:.2f} s")
+        if not lo <= bler <= hi:
+            raise AssertionError(f"[14] {name} BLER {bler} outside "
+                                 f"[{lo}, {hi}]")
+        if launches != {LIFTED_BP_KERNEL.name: {"f32": link.calls},
+                        LAYERED_BP_KERNEL.name: {}}:
+            raise AssertionError(f"[14] {name}: {launches} for {link.calls} "
+                                 "decoder calls")
+        if link.devices != {"cuda"}:
+            raise AssertionError(f"[14] {name} tensors on {link.devices}")
+        dh, de = estimation_against_cpu(link)
+        print(f"    {name}: estimation on the card against the CPU, batch "
+              f"8: max |h_hat diff| {dh:.3e}, max |err_var diff| {de:.3e} of "
+              f"the largest (bound 1e-5)")
+        if ckpt is not None:
+            calls = link.calls
+            reset_launches()
+            _, bler2 = sim_ber(link, [8.0], batch_size=batch,
+                               max_mc_iter=mc_iter, early_stop=False,
+                               verbose=True, checkpoint_path=ckpt)
+            print(f"    {name} resumed from {ckpt}: BLER {float(bler2[0])}, "
+                  f"{link.calls - calls} new decoder calls, "
+                  f"{LIFTED_BP_KERNEL.launches} launches")
+            if (link.calls != calls or LIFTED_BP_KERNEL.launches
+                    or float(bler2[0]) != bler):
+                raise AssertionError(f"[14] {name}: the resumed sweep ran "
+                                     "again or changed its BLER")
+        if prof is not None:
+            print("    " + prof.summary().replace("\n", "\n    "))
+        stages = link.stage_ms(batch, 8.0, 3)
+        for stage in stages:
+            if stage.startswith(("estimation", "equalization", "demap",
+                                 "decode")):
+                print(f"      {stage:30s} {stages[stage]:9.3f} ms")
+        out[name] = (bler, stages)
+    return out
 
 
 def main():
@@ -763,6 +989,11 @@ def main():
         for stage, t in stages.items():
             print(f"      {stage:30s} {t:9.3f} ms  {100 * t / tot:5.1f} %")
         print(f"      {'sum of stages':30s} {tot:9.3f} ms")
+    busy, wall = device_busy(flood, batch, 5)
+    print(f"    device busy share, flooding flagship (torch.profiler, 5 MC "
+          f"iterations after 3): {busy:.3f} ms of CUDA time in {wall:.3f} ms "
+          f"of wall time with the profiler on, {100 * busy / wall:.1f} %; "
+          f"{busy / 5:.3f} ms of device time per iteration")
 
     n_iters = 10
     run(LINK["batch"], 4.0)
@@ -838,6 +1069,13 @@ def main():
     losses = weighted_bp_steps(dev, 3, gen)
     print(f"    losses {losses}")
     check_no_kernel("[12]", {"cuda"})
+
+    print(f"[13] demapper: separable-PAM against table path on {card}")
+    demap_paths(dev, gen)
+
+    print(f"[14] flagship receiver variants through sim_ber at 8 dB, BP-20 "
+          f"(K1), on {card}")
+    run_receivers(dev)
 
     print(json.dumps({"kernels": [{
         "name": name,

@@ -4,6 +4,9 @@ from .config import config, dtypes
 from .block import Object, Block
 from . import constants, utils
 from .mapping import (pam_gray, qam, pam, Constellation, Mapper, Demapper,
-                      SymbolLogits2LLRs, BinarySource)
+                      SymbolDemapper, SymbolLogits2LLRs, LLRs2SymbolLogits,
+                      SymbolLogits2Moments, SymbolInds2Bits, QAM2PAM,
+                      PAM2QAM, BinarySource, SymbolSource, QAMSource,
+                      PAMSource)
 from .channel import AWGN
 from . import channel, fec, mimo, ofdm

@@ -7,4 +7,8 @@ from .apply_ofdm_channel import ApplyOFDMChannel
 from .generate_ofdm_channel import GenerateOFDMChannel
 from .ofdm_channel import OFDMChannel
 from . import tr38901
-from .utils import subcarrier_frequencies, cir_to_ofdm_channel
+from .utils import (subcarrier_frequencies, time_frequency_vector,
+                    time_lag_discrete_time_channel, cir_to_ofdm_channel,
+                    cir_to_time_channel, time_to_ofdm_channel, deg_2_rad,
+                    rad_2_deg, wrap_angle_0_360, exp_corr_mat,
+                    one_ring_corr_mat)

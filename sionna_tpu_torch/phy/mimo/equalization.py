@@ -1,5 +1,6 @@
-"""MIMO equalization (counterpart of ``sionna_tpu/phy/mimo/equalization.py``;
-the port has the LMMSE equalizer).
+"""MIMO equalization (counterpart of ``sionna_tpu/phy/mimo/equalization.py``:
+the LMMSE, ZF and MF equalizers; the JAX package's plane functions are
+TPU layout work and are left out).
 
 Cholesky-based: two triangular solves per resource element, unrolled
 for small matrices (see ``utils.linalg``).
@@ -9,10 +10,11 @@ import torch
 
 from ..config import config, dtypes
 from ..utils.linalg import _adjoint, _matmul, batched_cholesky, \
-    cholesky_solve
+    cholesky_solve, matrix_pinv
 from .utils import whiten_channel
 
-__all__ = ["lmmse_matrix", "lmmse_equalizer"]
+__all__ = ["lmmse_matrix", "lmmse_equalizer", "zf_equalizer",
+           "mf_equalizer"]
 
 
 def _cdtype(precision):
@@ -52,4 +54,37 @@ def lmmse_equalizer(y, h, s, whiten_interference=True, precision=None):
     gy = _matmul(g, y[..., None])[..., 0]
     x_hat = gy / d
     no_eff = (1 / d - 1).real
+    return x_hat, no_eff
+
+
+def zf_equalizer(y, h, s, precision=None):
+    """Zero-forcing equalization, G = (H^H H)^{-1} H^H: returns (x_hat,
+    no_eff) with no_eff = diag(G S G^H)."""
+    cdtype = _cdtype(precision)
+    y = torch.as_tensor(y).to(cdtype)
+    h = torch.as_tensor(h).to(cdtype)
+    s = torch.as_tensor(s).to(cdtype)
+    g = matrix_pinv(h)
+    x_hat = _matmul(g, y[..., None])[..., 0]
+    gsg = _matmul(_matmul(g, s), _adjoint(g))
+    no_eff = torch.diagonal(gsg, dim1=-2, dim2=-1).real
+    return x_hat, no_eff
+
+
+def mf_equalizer(y, h, s, precision=None):
+    """Matched-filter equalization, G = diag(H^H H)^{-1} H^H: returns
+    (x_hat, no_eff) with no_eff = |diag((I - GH)(I - GH)^H + G S G^H)|."""
+    cdtype = _cdtype(precision)
+    y = torch.as_tensor(y).to(cdtype)
+    h = torch.as_tensor(h).to(cdtype)
+    s = torch.as_tensor(s).to(cdtype)
+    hth = _matmul(_adjoint(h), h)
+    d_inv = 1 / torch.diagonal(hth, dim1=-2, dim2=-1)
+    g = d_inv[..., None] * _adjoint(h)
+    x_hat = _matmul(g, y[..., None])[..., 0]
+    gsg = _matmul(_matmul(g, s), _adjoint(g))
+    eye = torch.eye(h.shape[-1], dtype=cdtype, device=h.device)
+    err = eye - _matmul(g, h)
+    err_cov = _matmul(err, _adjoint(err))
+    no_eff = torch.abs(torch.diagonal(err_cov + gsg, dim1=-2, dim2=-1))
     return x_hat, no_eff

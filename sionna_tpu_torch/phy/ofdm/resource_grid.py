@@ -11,7 +11,8 @@ from ..block import Object, Block
 from .pilot_pattern import (PilotPattern, EmptyPilotPattern,
                             KroneckerPilotPattern)
 
-__all__ = ["ResourceGrid", "ResourceGridMapper", "RemoveNulledSubcarriers"]
+__all__ = ["ResourceGrid", "ResourceGridMapper", "ResourceGridDemapper",
+           "RemoveNulledSubcarriers"]
 
 
 class ResourceGrid(Object):
@@ -224,6 +225,51 @@ class ResourceGridMapper(Block):
         grid = torch.gather(src_vals, -1, idx)
         return grid.reshape(batch, rg.num_tx, rg.num_streams_per_tx,
                             rg.num_ofdm_symbols, rg.fft_size)
+
+
+class ResourceGridDemapper(Block):
+    """Extracts the data-carrying resource elements from a resource grid.
+
+    Input [batch, num_rx, num_streams_per_rx, num_ofdm_symbols,
+    fft_size(, data_dim)] -> [batch, num_tx, num_streams_per_tx,
+    num_data_symbols(, data_dim)]: the streams are put in transmitter
+    order, then each one's data positions are gathered.
+    """
+
+    def __init__(self, resource_grid, stream_management, precision=None,
+                 device=None):
+        super().__init__(precision=precision, device=device)
+        self._resource_grid = rg = resource_grid
+        self._stream_management = stream_management
+        rg_type = rg.build_type_grid()
+        # per (tx, stream) flat positions of the data REs
+        data_pos = np.stack(
+            [[np.where(rg_type[i, j].reshape(-1) == 0)[0]
+              for j in range(rg.num_streams_per_tx)]
+             for i in range(rg.num_tx)])
+        self.register_buffer(
+            "_data_pos", torch.as_tensor(data_pos, device=self.device),
+            persistent=False)
+        self.register_buffer(
+            "_stream_ind", torch.as_tensor(
+                np.asarray(stream_management.stream_ind, np.int64),
+                device=self.device), persistent=False)
+
+    def forward(self, y):
+        rg = self._resource_grid
+        y = torch.as_tensor(y)
+        has_data_dim = y.dim() == 6
+        if not has_data_dim:
+            y = y[..., None]
+        batch, data_dim = y.shape[0], y.shape[-1]
+        y = y.reshape(batch, -1, rg.num_ofdm_symbols * rg.fft_size, data_dim)
+        y = torch.index_select(y, 1, self._stream_ind.to(y.device))
+        y = y.reshape(batch, rg.num_tx, rg.num_streams_per_tx,
+                      rg.num_ofdm_symbols * rg.fft_size, data_dim)
+        idx = self._data_pos.to(y.device)[None, ..., None].expand(
+            (batch,) + tuple(self._data_pos.shape) + (data_dim,))
+        out = torch.gather(y, 3, idx)
+        return out if has_data_dim else out[..., 0]
 
 
 class RemoveNulledSubcarriers(Block):

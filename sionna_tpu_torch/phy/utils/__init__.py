@@ -6,3 +6,5 @@ from .metrics import (compute_ber, compute_bler, count_errors,
 from .misc import ebnodb2no, hard_decisions
 from .sim import sim_ber
 from .interop import load_numpy_state
+from .profiling import Profiler
+from .linalg import matrix_pinv

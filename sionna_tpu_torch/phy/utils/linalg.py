@@ -14,7 +14,7 @@ LMMSE stage at batch 2048 took 1.8 ms with the unrolled product and
 import torch
 
 __all__ = ["small_cholesky", "batched_cholesky", "solve_triangular_lower",
-           "cholesky_solve", "inv_cholesky"]
+           "cholesky_solve", "inv_cholesky", "matrix_pinv"]
 
 # Largest trailing dimension handled by the unrolled versions.
 _SMALL_M = 4
@@ -119,3 +119,13 @@ def inv_cholesky(tensor):
     eye = torch.eye(tensor.shape[-1], dtype=tensor.dtype,
                     device=tensor.device).expand(l.shape)
     return solve_triangular_lower(l, eye)
+
+
+def matrix_pinv(tensor):
+    """Moore-Penrose pseudo-inverse ``(A^H A)^{-1} A^H`` of a batch of
+    full-column-rank matrices, through the Cholesky factor of the Gram
+    matrix."""
+    tensor = torch.as_tensor(tensor)
+    gram = _matmul(_adjoint(tensor), tensor)
+    l_inv = inv_cholesky(gram)
+    return _matmul(_matmul(_adjoint(l_inv), l_inv), _adjoint(tensor))

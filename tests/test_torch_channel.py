@@ -15,12 +15,15 @@ import jax
 import sionna_tpu.phy.channel as jch
 import sionna_tpu.phy.ofdm as jofdm
 from sionna_tpu.phy.channel.tr38901 import TDL as JTDL
+import sionna_tpu.phy.channel.utils as jcu
+import sionna_tpu_torch.phy.channel.utils as tcu
 from sionna_tpu_torch.phy.channel import (ApplyOFDMChannel, OFDMChannel,
                                           cir_to_ofdm_channel,
                                           subcarrier_frequencies)
 from sionna_tpu_torch.phy.channel.tr38901 import TDL
 from sionna_tpu_torch.phy.constants import PI, SPEED_OF_LIGHT
-from sionna_tpu_torch.phy.ofdm import ResourceGrid
+from sionna_tpu_torch.phy.ofdm import (ResourceGrid, tdl_freq_cov_mat,
+                                       tdl_time_cov_mat)
 from sionna_tpu_torch.phy.utils import load_numpy_state
 from sionna_tpu_torch.phy.config import config as torch_config
 
@@ -202,3 +205,102 @@ def test_tdl_spatial_correlation():
         h = a[:, 0, :, 0, 0, :, 0].numpy()  # [batch, rx_ant, taps]
         cov = np.einsum("bit,bjt->ij", h, np.conj(h)) / h.shape[0]
         np.testing.assert_allclose(cov, r, atol=0.06)
+
+
+def _tdl_cir(num_time_steps):
+    """a, tau drawn by JAX's TDL-A (2 rx antennas), as NumPy."""
+    jtdl = JTDL("A", 100e-9, 3.5e9, min_speed=3, max_speed=30,
+                num_rx_ant=2)
+    a, tau = jax.jit(lambda key: jtdl(3, num_time_steps, 20e6, key=key))(
+        jax.random.PRNGKey(1))
+    return np.array(a), np.array(tau)
+
+
+def test_time_vectors_and_angles_match_jax():
+    # JAX's linspace lerps start and stop (its middle sample of
+    # -7..6 is 1e-15, not 0): one f32 ULP of the largest value
+    for n, dt in ((14, 1e-6), (15, 3.3e-8)):
+        for got, want in zip(tcu.time_frequency_vector(n, dt),
+                             jcu.time_frequency_vector(n, dt)):
+            want = np.asarray(want)
+            np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                       atol=F32_U * np.abs(want).max())
+    assert tcu.time_lag_discrete_time_channel(20e6) == \
+        jcu.time_lag_discrete_time_channel(20e6)
+    assert tcu.time_lag_discrete_time_channel(1e8, 1e-6) == \
+        jcu.time_lag_discrete_time_channel(1e8, 1e-6)
+    x = np.array([-400., -30.5, 0., 45., 359.9, 721.], np.float32)
+    np.testing.assert_array_equal(tcu.deg_2_rad(torch.as_tensor(x)).numpy(),
+                                  np.asarray(jcu.deg_2_rad(x)))
+    np.testing.assert_array_equal(tcu.rad_2_deg(torch.as_tensor(x)).numpy(),
+                                  np.asarray(jcu.rad_2_deg(x)))
+    np.testing.assert_array_equal(
+        tcu.wrap_angle_0_360(torch.as_tensor(x)).numpy(),
+        np.asarray(jcu.wrap_angle_0_360(x)))
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+def test_cir_to_time_channel_matches_jax(normalize):
+    """On a and tau drawn by JAX's TDL-A: sinc taps summed over the
+    paths, f32 (torch's and XLA's sinc round alike to a few ULP; the sum
+    of ~23 paths adds a few more)."""
+    a, tau = _tdl_cir(5)
+    l_min, l_max = jcu.time_lag_discrete_time_channel(20e6)
+    got = tcu.cir_to_time_channel(20e6, torch.as_tensor(a),
+                                  torch.as_tensor(tau), l_min, l_max,
+                                  normalize=normalize)
+    want = np.asarray(jcu.cir_to_time_channel(20e6, a, tau, l_min, l_max,
+                                              normalize=normalize))
+    assert got.shape == want.shape == a.shape[:5] + (5, l_max - l_min + 1)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=64 * F32_U * np.abs(want).max())
+
+
+def test_time_to_ofdm_channel_matches_jax():
+    """The taps at each symbol start, zero-padded and FFT'd: torch's
+    pocketfft against XLA:CPU's FFT, f32."""
+    kw = dict(RG, fft_size=32, cyclic_prefix_length=4)
+    jrg, trg = jofdm.ResourceGrid(**kw), ResourceGrid(**kw)
+    rng = np.random.default_rng(2)
+    h_t = (rng.normal(size=(2, 1, 1, 1, 1, 14 * 36, 9))
+           + 1j * rng.normal(size=(2, 1, 1, 1, 1, 14 * 36, 9))).astype(
+               np.complex64)
+    got = tcu.time_to_ofdm_channel(torch.as_tensor(h_t), trg, -3)
+    want = np.asarray(jcu.time_to_ofdm_channel(h_t, jrg, -3))
+    assert got.shape == want.shape == (2, 1, 1, 1, 1, 14, 32)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=64 * F32_U * np.abs(want).max())
+
+
+def test_correlation_matrices_match_jax():
+    for a in (0.5, 0.9 * np.exp(0.3j), np.array([0.2, 0.7j], np.complex64)):
+        got = tcu.exp_corr_mat(torch.as_tensor(a), 4)
+        want = np.asarray(jcu.exp_corr_mat(a, 4))
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=8 * F32_U)
+    for phi in (30., np.array([-10., 45., 80.], np.float32)):
+        got = tcu.one_ring_corr_mat(torch.as_tensor(phi), 4)
+        want = np.asarray(jcu.one_ring_corr_mat(phi, 4))
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=64 * F32_U)
+    # correlation matrices: Hermitian, unit diagonal
+    r = tcu.exp_corr_mat(torch.tensor(0.9 * np.exp(0.3j)), 5).numpy()
+    np.testing.assert_allclose(r, np.conj(r.T), atol=1e-7)
+    np.testing.assert_allclose(np.diag(r), 1, atol=1e-7)
+
+
+def test_tdl_covariances_match_jax():
+    """Host NumPy in both packages from the same JSON tables: equal."""
+    for model in ("A", "B", "C", "D", "E"):
+        np.testing.assert_array_equal(
+            tdl_freq_cov_mat(model, 30e3, 16, 100e-9),
+            jofdm.tdl_freq_cov_mat(model, 30e3, 16, 100e-9))
+        np.testing.assert_array_equal(
+            tdl_time_cov_mat(model, 3 / 3.6, 3.5e9, 3.54e-5, 14),
+            jofdm.tdl_time_cov_mat(model, 3 / 3.6, 3.5e9, 3.54e-5, 14))
+    r = tdl_freq_cov_mat("A", 30e3, 16, 100e-9)
+    np.testing.assert_allclose(np.diag(r), 1)  # normalized power
+    with pytest.raises(ValueError):
+        tdl_freq_cov_mat("F", 30e3, 16, 100e-9)

@@ -4,7 +4,10 @@ k=1536), batch 4. The same bits, the same JAX-drawn TDL-A channel and
 the same noise go through both chains, from the LDPC encoder to the
 decoder; the LLRs into the decoder agree to f32 rounding, and the error
 counts are identical with the published decoder (boxplus BP-20,
-flooding) and with the layered schedule (10 iterations)."""
+flooding) and with the layered schedule (10 iterations). The receiver
+variants of phase 14 of chip_smoke.py (linear, time-averaged linear and
+LMMSE interpolation; LMMSE, ZF and MF equalization) are held through
+their LLRs."""
 
 import functools
 
@@ -28,6 +31,7 @@ from sionna_tpu_torch.phy.fec.interleaving import (Deinterleaver,
                                                    RowColumnInterleaver)
 from sionna_tpu_torch.phy.fec.ldpc import LDPC5GDecoder, LDPC5GEncoder
 from sionna_tpu_torch.phy.mimo import StreamManagement
+import sionna_tpu_torch.phy.ofdm as tofdm
 from sionna_tpu_torch.phy.ofdm import (LMMSEEqualizer, LSChannelEstimator,
                                        ResourceGrid, ResourceGridMapper)
 from sionna_tpu_torch.phy.utils import ebnodb2no, sim_ber
@@ -52,7 +56,7 @@ RG = dict(num_ofdm_symbols=14, fft_size=FFT, subcarrier_spacing=30e3,
 # Received grid: one complex product per RE, so ~1 ULP of |y|.
 Y_ATOL = 1e-5
 # LLRs into the decoder: LS (complex division), LMMSE (JAX's plane path
-# against the port's generic algebra) and the demapper's logsumexp each
+# against the port's generic algebra) and the demapper's logaddexp each
 # round differently in the last place: measured below 4e-6 relative at
 # |LLR| <= ~30, so 1e-5 relative is a few ULP of f32.
 LLR_RTOL, LLR_ATOL = 1e-5, 1e-4
@@ -170,3 +174,74 @@ def test_flagship_link_through_sim_ber():
         _, bler = sim_ber(mc_fun, [3.0, 14.0], batch_size=16, max_mc_iter=2,
                           early_stop=False, verbose=False)
         assert bler[0] == 1.0 and bler[1] <= 0.1
+
+
+# The receiver variants that the channel-estimation tutorial compares
+# (chip_smoke.py phase 14 runs them at full width): (estimator,
+# equalizer), the estimator an interpolation type or "lmmse" for
+# LMMSEInterpolator("t-f") from the TDL-A covariances.
+RECEIVERS = {"a": ("lin", "lmmse"), "b": ("lin_time_avg", "zf"),
+             "c": ("lmmse", "lmmse"), "d": ("nn", "mf")}
+
+
+def _receiver(pkg, rg, sm, variant):
+    """(estimator, equalizer) of ``variant`` from OFDM package ``pkg``
+    (the JAX package's or the port's)."""
+    interp, eq = RECEIVERS[variant]
+    if interp == "lmmse":
+        cov_f = pkg.tdl_freq_cov_mat("A", 30e3, FFT, 100e-9)
+        cov_t = pkg.tdl_time_cov_mat("A", 3 / 3.6, 3.5e9,
+                                     rg.ofdm_symbol_duration, 14)
+        est = pkg.LSChannelEstimator(rg, interpolator=pkg.LMMSEInterpolator(
+            rg.pilot_pattern, cov_t, cov_f, order="t-f"))
+    else:
+        est = pkg.LSChannelEstimator(rg, interpolation_type=interp)
+    equ = {"lmmse": pkg.LMMSEEqualizer, "zf": pkg.ZFEqualizer,
+           "mf": pkg.MFEqualizer}[eq](rg, sm)
+    return est, equ
+
+
+@pytest.mark.parametrize("variant", sorted(RECEIVERS))
+def test_flagship_receivers_match_jax(variant):
+    """Each receiver variant of the flagship on the same received grid
+    (the port's transmitter, bit-exact against JAX's in
+    test_flagship_link_matches_jax, through a JAX-drawn TDL-A channel
+    plus noise at 8 dB): the LLRs into the decoder agree to f32 rounding
+    (the LMMSE interpolation runs in f64 in both packages)."""
+    p = _port_link(dict(num_iter=20))
+    jrg = jofdm.ResourceGrid(**RG)
+    rng = np.random.default_rng(20)
+    b = rng.integers(0, 2, (BATCH, 1, 1, p["enc"].k)).astype(np.float32)
+    h = np.array(jch.GenerateOFDMChannel(
+        JTDL("A", 100e-9, 3.5e9, min_speed=3, max_speed=3), jrg,
+        normalize_channel=True)(BATCH, key=jax.random.PRNGKey(8)))
+    no = np.float32(ebnodb2no(8.0, NBPS, 0.5, p["rg"]))
+    noise = ((rng.normal(size=(BATCH, 1, 1, 14, FFT))
+              + 1j * rng.normal(size=(BATCH, 1, 1, 14, FFT)))
+             * np.sqrt(no / 2)).astype(np.complex64)
+    x = p["rgm"](p["mapper"](p["il"](p["enc"](torch.as_tensor(b)))))
+    y = (ApplyOFDMChannel()(x, torch.as_tensor(h))
+         + torch.as_tensor(noise)).numpy()
+
+    jest, jequ = _receiver(jofdm, jrg,
+                           jmimo.StreamManagement(np.array([[1]]), 1),
+                           variant)
+    jdem = jphy.Demapper("app", "qam", NBPS)
+    jdil = jil.Deinterleaver(jil.RowColumnInterleaver(row_depth=NBPS))
+
+    @jax.jit
+    def jrx(y):
+        h_hat, err_var = jest(y, no)
+        x_hat, no_eff = jequ(y, h_hat, err_var, no)
+        return jdil(jdem(x_hat, no_eff))
+
+    test, tequ = _receiver(tofdm, p["rg"],
+                           StreamManagement(np.array([[1]]), 1), variant)
+    h_hat, err_var = test(torch.as_tensor(y), torch.tensor(no))
+    x_hat, no_eff = tequ(torch.as_tensor(y), h_hat, err_var,
+                         torch.tensor(no))
+    llr = p["dil"](p["dem"](x_hat, no_eff))
+    want = np.asarray(jrx(y))
+    assert llr.shape == want.shape == (BATCH, 1, 1, p["enc"].n)
+    np.testing.assert_allclose(llr.numpy(), want, rtol=LLR_RTOL,
+                               atol=LLR_ATOL)

@@ -1,6 +1,9 @@
 """The port's first slice as a whole: the coded-AWGN 5G-LDPC link against
-the JAX package on the same bits and noise, and the port's ``sim_ber``
-against closed-form BER."""
+the JAX package on the same bits and noise; the port's ``sim_ber``
+against closed-form BER, and against JAX's signature, checkpoints and
+profiler phases; the ``Profiler``."""
+
+import time
 
 import numpy as np
 import pytest
@@ -11,11 +14,13 @@ import jax
 import jax.numpy as jnp
 
 import sionna_tpu.phy.mapping as jmap
+import sionna_tpu.phy.utils as jutils
 from sionna_tpu.phy.fec.ldpc import LDPC5GEncoder as JEnc
 from sionna_tpu.phy.fec.ldpc import LDPC5GDecoder as JDec
 from sionna_tpu_torch.phy import AWGN, BinarySource, Demapper, Mapper
 from sionna_tpu_torch.phy.fec.ldpc import LDPC5GDecoder, LDPC5GEncoder
-from sionna_tpu_torch.phy.utils import ebnodb2no, hard_decisions, sim_ber
+from sionna_tpu_torch.phy.utils import (Profiler, ebnodb2no, hard_decisions,
+                                       sim_ber)
 from sionna_tpu_torch.phy.config import config as torch_config
 
 torch.set_num_threads(2)
@@ -185,5 +190,165 @@ def test_sim_ber_stopping_rules(capsys):
     assert float(ber_soft[0]) == 0.0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sim_ber(mc_fun, [0.0], 8, 1, distribute="all")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sim_ber(mc_fun, [0.0], 8, 1, checkpoint_path="x.npz")
+
+
+def _zeros_mc_fun(batch_size, ebno_db):
+    return torch.zeros(4, 8), torch.zeros(4, 8)
+
+
+@pytest.mark.parametrize("kw", [{"graph_mode": "xla"},
+                                {"graph_mode": "graph"},
+                                {"graph_mode": None},
+                                {"precision": "single"},
+                                {"precision": "double"},
+                                {"profiler": None}])
+def test_sim_ber_accepts_jax_keywords(kw):
+    """Fault F1: the reference's graph_mode, precision and profiler
+    keywords are accepted (they raised TypeError before), with JAX's
+    result on the same model."""
+    ber, bler = sim_ber(_zeros_mc_fun, [0.0], 4, 2, verbose=False, **kw)
+    jber, jbler = jutils.sim_ber(lambda bs, e: (jnp.zeros((4, 8)),
+                                                jnp.zeros((4, 8))),
+                                 [0.0], 4, 2, verbose=False, **kw)
+    np.testing.assert_array_equal(ber.numpy(), np.asarray(jber))
+    np.testing.assert_array_equal(bler.numpy(), np.asarray(jbler))
+    assert ber.tolist() == [0.0] and bler.tolist() == [0.0]
+
+
+def test_sim_ber_validates_keywords():
+    for kw in ({"graph_mode": "eager"}, {"precision": "half"}):
+        with pytest.raises(ValueError):
+            sim_ber(_zeros_mc_fun, [0.0], 4, 2, verbose=False, **kw)
+        with pytest.raises(ValueError):
+            jutils.sim_ber(_zeros_mc_fun, [0.0], 4, 2, verbose=False, **kw)
+
+
+def test_sim_ber_checkpoint_resume(tmp_path):
+    """As tests/test_awgn_sim.py holds JAX's: the counters are saved
+    after every chunk; a point marked half-done resumes from its
+    iteration count; a completed sweep resumes without a call; an
+    unreadable or mismatching file means a fresh start."""
+    mc_fun = _uncoded_model(2)
+    calls = []
+
+    def counted(batch_size, ebno_db):
+        calls.append(ebno_db)
+        return mc_fun(batch_size, ebno_db)
+
+    ck = str(tmp_path / "sweep.npz")
+    ber1, bler1 = sim_ber(counted, [0., 3.], 100, max_mc_iter=4,
+                          device_iters=2, early_stop=False, verbose=False,
+                          checkpoint_path=ck)
+    assert len(calls) == 8
+    st = dict(np.load(ck, allow_pickle=True))
+    assert list(st["status"]) == ["reached max iter"] * 2
+    assert list(st["iters"]) == [4, 4]
+    assert list(st["nb_bits"]) == [4 * 100 * 1024] * 2
+    # a complete sweep resumes as complete: no call, the same numbers
+    calls.clear()
+    ber2, bler2 = sim_ber(counted, [0., 3.], 100, max_mc_iter=4,
+                          early_stop=False, verbose=False,
+                          checkpoint_path=ck)
+    assert calls == []
+    assert torch.equal(ber2, ber1) and torch.equal(bler2, bler1)
+    # mark point 1 half-done and resume: two more iterations there
+    status = st["status"].copy()
+    status[1] = ""
+    iters = st["iters"].copy()
+    iters[1] = 2
+    np.savez(ck, ebno_dbs=st["ebno_dbs"], bit_errors=st["bit_errors"],
+             block_errors=st["block_errors"], nb_bits=st["nb_bits"],
+             nb_blocks=st["nb_blocks"], iters=iters, status=status)
+    sim_ber(counted, [0., 3.], 100, max_mc_iter=4, early_stop=False,
+            verbose=False, checkpoint_path=ck)
+    assert calls == [3.0, 3.0]
+    st2 = np.load(ck, allow_pickle=True)
+    assert list(st2["iters"]) == [4, 4]
+    assert int(st2["nb_bits"][1]) == 6 * 100 * 1024
+    # another sweep, or an unreadable file: a fresh start
+    calls.clear()
+    sim_ber(counted, [1.0], 100, max_mc_iter=1, verbose=False,
+            checkpoint_path=ck)
+    assert calls == [1.0]
+    with open(ck, "wb") as f:
+        f.write(b"not an npz")
+    calls.clear()
+    sim_ber(counted, [1.0], 100, max_mc_iter=1, verbose=False,
+            checkpoint_path=ck)
+    assert calls == [1.0]
+    assert not (tmp_path / "sweep.npz.tmp.npz").exists()
+
+
+def test_sim_ber_interrupt_marks_points(tmp_path):
+    """A KeyboardInterrupt marks the unfinished points "interrupted" and
+    saves the checkpoint before the re-raise; resuming finishes them."""
+    mc_fun = _uncoded_model(2)
+
+    def interrupted(batch_size, ebno_db):
+        if ebno_db > 1.0:
+            raise KeyboardInterrupt
+        return mc_fun(batch_size, ebno_db)
+
+    ck = str(tmp_path / "sweep.npz")
+    with pytest.raises(KeyboardInterrupt):
+        sim_ber(interrupted, [0.0, 2.0, 3.0], 64, max_mc_iter=2,
+                early_stop=False, verbose=False, checkpoint_path=ck)
+    st = np.load(ck, allow_pickle=True)
+    assert list(st["status"]) == ["reached max iter", "interrupted",
+                                  "interrupted"]
+    ber, _ = sim_ber(interrupted, [0.0, 2.0, 3.0], 64, max_mc_iter=2,
+                     early_stop=False, verbose=False,
+                     forward_keyboard_interrupt=False, checkpoint_path=ck)
+    assert float(ber[0]) > 0 and ber[1:].tolist() == [-1.0, -1.0]
+    calls = []
+    sim_ber(lambda bs, e: calls.append(e) or mc_fun(bs, e),
+            [0.0, 2.0, 3.0], 64, max_mc_iter=2, early_stop=False,
+            verbose=False, checkpoint_path=ck)
+    assert calls == [2.0, 2.0, 3.0, 3.0]
+    st = np.load(ck, allow_pickle=True)
+    assert list(st["status"]) == ["reached max iter"] * 3
+
+
+def test_profiler_phases(tmp_path):
+    """As tests/test_utils.py holds JAX's Profiler; with ``trace_dir``
+    it writes a Chrome trace holding the phases."""
+    prof = Profiler()
+    with prof.phase("a"):
+        time.sleep(0.01)
+    with prof.phase("a"):
+        time.sleep(0.01)
+    with prof.phase("b"):
+        with prof.phase("inner"):
+            pass
+    assert prof.counts["a"] == 2
+    assert prof.times["a"] >= 0.02
+    assert "inner" in prof.times
+    s = prof.summary()
+    assert "a" in s and "mean [ms]" in s
+    assert prof.as_dict()["b"]["count"] == 1
+    prof.reset()
+    assert prof.summary() == "(no phases recorded)"
+    with Profiler(trace_dir=str(tmp_path / "trace")) as prof:
+        with prof.phase("matmul_phase"):
+            torch.ones(8, 8) @ torch.ones(8, 8)
+    trace = (tmp_path / "trace" / "trace.json").read_text()
+    assert "matmul_phase" in trace and prof.counts == {"matmul_phase": 1}
+
+
+def test_sim_ber_profiler_integration():
+    """sim_ber records "compile" (the first chunk of each length) and
+    "mc_chunk" phases, as the JAX package's does on the same sweep."""
+    tprof, jprof = Profiler(), jutils.Profiler()
+    ber, _ = sim_ber(_uncoded_model(2), [0.0, 2.0], batch_size=64,
+                     max_mc_iter=4, verbose=False, early_stop=False,
+                     profiler=tprof)
+
+    def jmc(batch_size, ebno_db, key):
+        b = jax.random.bernoulli(key, 0.5, (batch_size, 16))
+        return b.astype(jnp.float32), b.astype(jnp.float32)
+
+    jutils.sim_ber(jmc, [0.0, 2.0], batch_size=64, max_mc_iter=4,
+                   verbose=False, early_stop=False, profiler=jprof)
+    assert tprof.counts == jprof.counts
+    assert tprof.counts["compile"] == 1 and tprof.counts["mc_chunk"] >= 1
+    assert np.all(ber.numpy() > 0)

@@ -26,10 +26,15 @@ def _blocks_on_cpu():
     yield
     torch_config.device = device
 
-# Demapper LLRs: the port reduces the 2^K points with torch.logsumexp
-# (or max) over masked logits; JAX's Gray-QAM fast path reduces per axis
-# with pairwise logaddexp. Both are f32; the rounding differs by a few
-# ULP of the largest exponent (|LLR| up to ~30 here).
+# Demapper LLRs on the separable path (Gray QAM, the default): the same
+# formula as JAX's, the points folded in the same order; maxlog is then
+# bit-exact, and app differs only in the rounding of logaddexp (XLA:CPU's
+# exp/log1p against libm's): measured below 8e-6 at |LLR| <= ~270, 16- to
+# 256-QAM, with and without a prior.
+SEP_RTOL, SEP_ATOL = 1e-6, 1e-5
+# The table path (a ``points`` override, custom points): torch.logsumexp
+# against jax.scipy's over the masked 2^K logits, both f32: a few ULP of
+# the largest exponent (|LLR| up to ~30 here).
 LLR_RTOL, LLR_ATOL = 1e-4, 1e-4
 
 
@@ -43,26 +48,26 @@ def test_points_match_jax(kind, nbps):
     cj = jp.Constellation(kind, nbps)
     ct = tp.Constellation(kind, nbps)
     np.testing.assert_array_equal(ct.points.numpy(), np.asarray(cj.points))
+    np.testing.assert_array_equal(ct.points_host, cj.points_host)
     assert ct.points.dtype == torch.complex64
 
 
 @pytest.mark.parametrize("kind,nbps", [("qam", 2), ("qam", 4), ("qam", 6),
-                                       ("pam", 2)])
+                                       ("qam", 8), ("pam", 2)])
 def test_mapper_bit_exact(kind, nbps):
     rng = np.random.default_rng(nbps)
     bits = rng.integers(0, 2, (3, 5, nbps * 40)).astype(np.float32)
-    mj = jp.Mapper(kind, nbps)
-    got = tp.Mapper(kind, nbps)(torch.as_tensor(bits))
-    # the port has JAX's table path (a points override selects it there)
-    want = np.asarray(mj(jnp.asarray(bits),
-                         points=mj.constellation._points))
+    mj, mt = jp.Mapper(kind, nbps), tp.Mapper(kind, nbps)
+    # the default path: separable (where-tree) for Gray QAM, the table
+    # for PAM, in both packages
+    got = mt(torch.as_tensor(bits))
+    want = np.asarray(mj(jnp.asarray(bits)))
     assert got.dtype == torch.complex64 and got.shape == want.shape
     np.testing.assert_array_equal(got.numpy(), want)
-    if nbps <= 4:
-        # JAX's default separable path normalizes the points in NumPy;
-        # up to 16-QAM that is bit-identical to the table path too
-        np.testing.assert_array_equal(got.numpy(),
-                                      np.asarray(mj(jnp.asarray(bits))))
+    # a points override selects the table path in both packages
+    got = mt(torch.as_tensor(bits), points=mt.constellation.raw_points)
+    want = np.asarray(mj(jnp.asarray(bits), points=mj.constellation._points))
+    np.testing.assert_array_equal(got.numpy(), want)
     x, ind = tp.Mapper(kind, nbps, return_indices=True)(torch.as_tensor(bits))
     xj, indj = jp.Mapper(kind, nbps, return_indices=True)(jnp.asarray(bits))
     np.testing.assert_array_equal(ind.numpy(), np.asarray(indj))
@@ -78,33 +83,60 @@ def _noisy_symbols(rng, nbps, no, shape=(4, 300)):
 
 
 @pytest.mark.parametrize("method", ["app", "maxlog"])
-@pytest.mark.parametrize("nbps", [2, 4, 6])
+@pytest.mark.parametrize("nbps", [2, 4, 6, 8])
 def test_demapper_matches_jax(method, nbps):
+    """The default (separable) path at three noise levels, with and
+    without a prior (per row ``no`` there), and hard decisions."""
     rng = np.random.default_rng(10 + nbps)
-    no = np.float32(0.2)
-    y = _noisy_symbols(rng, nbps, no)
-    want = np.asarray(jp.Demapper(method, "qam", nbps)(jnp.asarray(y), no))
-    got = tp.Demapper(method, "qam", nbps)(torch.as_tensor(y),
-                                           torch.tensor(no))
-    assert got.dtype == torch.float32 and got.shape == want.shape
-    np.testing.assert_allclose(got.numpy(), want, rtol=LLR_RTOL,
-                               atol=LLR_ATOL)
-    # with a prior, and with no given per row
-    prior = rng.normal(size=(nbps,)).astype(np.float32)
-    no_rows = np.full((4, 1), no, np.float32)
-    want = np.asarray(jp.Demapper(method, "qam", nbps)(
-        jnp.asarray(y), jnp.asarray(no_rows), prior=jnp.asarray(prior)))
-    got = tp.Demapper(method, "qam", nbps)(
-        torch.as_tensor(y), torch.as_tensor(no_rows),
-        prior=torch.as_tensor(prior))
-    np.testing.assert_allclose(got.numpy(), want, rtol=LLR_RTOL,
-                               atol=LLR_ATOL)
+    dj, dt = jp.Demapper(method, "qam", nbps), tp.Demapper(method, "qam",
+                                                           nbps)
+    for no in (np.float32(0.01), np.float32(0.2), np.float32(1.0)):
+        y = _noisy_symbols(rng, nbps, no)
+        want = np.asarray(dj(jnp.asarray(y), no))
+        got = dt(torch.as_tensor(y), torch.tensor(no))
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        if method == "maxlog":
+            np.testing.assert_array_equal(got.numpy(), want)
+        else:
+            np.testing.assert_allclose(got.numpy(), want, rtol=SEP_RTOL,
+                                       atol=SEP_ATOL)
+        prior = rng.normal(size=(nbps,)).astype(np.float32)
+        no_rows = np.full((4, 1), no, np.float32)
+        want = np.asarray(dj(jnp.asarray(y), jnp.asarray(no_rows),
+                             prior=jnp.asarray(prior)))
+        got = dt(torch.as_tensor(y), torch.as_tensor(no_rows),
+                 prior=torch.as_tensor(prior))
+        np.testing.assert_allclose(got.numpy(), want, rtol=SEP_RTOL,
+                                   atol=SEP_ATOL)
     hard = tp.Demapper(method, "qam", nbps, hard_out=True)(
         torch.as_tensor(y), torch.tensor(no))
     np.testing.assert_array_equal(
         hard.numpy(), np.asarray(jp.Demapper(method, "qam", nbps,
                                              hard_out=True)(
             jnp.asarray(y), no)))
+
+
+@pytest.mark.parametrize("method", ["app", "maxlog"])
+def test_demapper_table_path_matches_jax(method):
+    """A points override takes the table path in both packages."""
+    rng = np.random.default_rng(5)
+    no = np.float32(0.2)
+    y = _noisy_symbols(rng, 4, no)
+    dj, dt = jp.Demapper(method, "qam", 4), tp.Demapper(method, "qam", 4)
+    want = np.asarray(dj(jnp.asarray(y), no,
+                         points=dj.constellation._points))
+    got = dt(torch.as_tensor(y), torch.tensor(no),
+             points=dt.constellation.raw_points)
+    np.testing.assert_allclose(got.numpy(), want, rtol=LLR_RTOL,
+                               atol=LLR_ATOL)
+    prior = rng.normal(size=(4, 300, 4)).astype(np.float32)
+    want = np.asarray(dj(jnp.asarray(y), no, prior=jnp.asarray(prior),
+                         points=dj.constellation._points))
+    got = dt(torch.as_tensor(y), torch.tensor(no),
+             prior=torch.as_tensor(prior),
+             points=dt.constellation.raw_points)
+    np.testing.assert_allclose(got.numpy(), want, rtol=LLR_RTOL,
+                               atol=LLR_ATOL)
 
 
 def test_trainable_points_loaded_from_jax():
@@ -191,3 +223,135 @@ def test_awgn_statistics():
     y1 = awgn(x[:10], 0.5, generator=g)
     g.manual_seed(1)
     assert torch.equal(awgn(x[:10], 0.5, generator=g), y1)
+
+
+# Symbol-level blocks: softmax/log-softmax over at most 16 logits and
+# sums of up to 4 log-sigmoids in f32 (XLA:CPU's exp/log against libm's).
+SYM_RTOL, SYM_ATOL = 1e-5, 1e-5
+
+
+def test_symbol_demapper_matches_jax():
+    rng = np.random.default_rng(21)
+    no = np.float32(0.3)
+    y = _noisy_symbols(rng, 4, no, (3, 50))
+    prior = rng.normal(size=(3, 50, 16)).astype(np.float32)
+    for kw in ({}, {"prior": prior}):
+        want = np.asarray(jp.SymbolDemapper("qam", 4)(
+            jnp.asarray(y), no, **{k: jnp.asarray(v) for k, v in kw.items()}))
+        got = tp.SymbolDemapper("qam", 4)(
+            torch.as_tensor(y), torch.tensor(no),
+            **{k: torch.as_tensor(v) for k, v in kw.items()})
+        np.testing.assert_allclose(got.numpy(), want, rtol=SYM_RTOL,
+                                   atol=SYM_ATOL)
+    hard = tp.SymbolDemapper("qam", 4, hard_out=True)(torch.as_tensor(y),
+                                                      torch.tensor(no))
+    assert hard.dtype == torch.int32
+    np.testing.assert_array_equal(hard.numpy(), np.asarray(
+        jp.SymbolDemapper("qam", 4, hard_out=True)(jnp.asarray(y), no)))
+
+
+def test_llrs2symbol_logits_matches_jax():
+    rng = np.random.default_rng(22)
+    llr = (4 * rng.normal(size=(3, 20, 4))).astype(np.float32)
+    want = np.asarray(jp.LLRs2SymbolLogits(4)(jnp.asarray(llr)))
+    got = tp.LLRs2SymbolLogits(4)(torch.as_tensor(llr))
+    assert got.shape == want.shape == (3, 20, 16)
+    np.testing.assert_allclose(got.numpy(), want, rtol=SYM_RTOL,
+                               atol=SYM_ATOL)
+    np.testing.assert_array_equal(
+        tp.LLRs2SymbolLogits(4, hard_out=True)(torch.as_tensor(llr)).numpy(),
+        np.asarray(jp.LLRs2SymbolLogits(4, hard_out=True)(jnp.asarray(llr))))
+
+
+def test_symbol_logits2moments_matches_jax():
+    rng = np.random.default_rng(23)
+    logits = (3 * rng.normal(size=(5, 7, 16))).astype(np.float32)
+    mj, vj = jp.SymbolLogits2Moments("qam", 4)(jnp.asarray(logits))
+    mt, vt = tp.SymbolLogits2Moments("qam", 4)(torch.as_tensor(logits))
+    np.testing.assert_allclose(mt.numpy(), np.asarray(mj), rtol=SYM_RTOL,
+                               atol=SYM_ATOL)
+    np.testing.assert_allclose(vt.numpy(), np.asarray(vj), rtol=SYM_RTOL,
+                               atol=SYM_ATOL)
+
+
+def test_symbol_inds2bits_and_pam_qam_index_maps_match_jax():
+    rng = np.random.default_rng(24)
+    ind = rng.integers(0, 64, (4, 9))
+    np.testing.assert_array_equal(
+        tp.SymbolInds2Bits(6)(torch.as_tensor(ind)).numpy(),
+        np.asarray(jp.SymbolInds2Bits(6)(ind)))
+    for nbps in (2, 4, 6):
+        ind = rng.integers(0, 2 ** nbps, (3, 11))
+        p1t, p2t = tp.QAM2PAM(nbps)(torch.as_tensor(ind))
+        p1j, p2j = jp.QAM2PAM(nbps)(ind)
+        np.testing.assert_array_equal(p1t.numpy(), np.asarray(p1j))
+        np.testing.assert_array_equal(p2t.numpy(), np.asarray(p2j))
+        # PAM2QAM inverts QAM2PAM
+        back = tp.PAM2QAM(nbps)(p1t, p2t)
+        np.testing.assert_array_equal(back.numpy(), ind)
+        np.testing.assert_array_equal(
+            back.numpy(), np.asarray(jp.PAM2QAM(nbps)(p1j, p2j)))
+        # soft: PAM logits combined into QAM logits
+        h = 2 ** (nbps // 2)
+        l1 = rng.normal(size=(3, h)).astype(np.float32)
+        l2 = rng.normal(size=(3, h)).astype(np.float32)
+        np.testing.assert_array_equal(
+            tp.PAM2QAM(nbps, hard_in_out=False)(torch.as_tensor(l1),
+                                                torch.as_tensor(l2)).numpy(),
+            np.asarray(jp.PAM2QAM(nbps, hard_in_out=False)(l1, l2)))
+
+
+@pytest.mark.parametrize("kind,nbps", [("qam", 4), ("pam", 2)])
+def test_symbol_sources(kind, nbps):
+    """Random blocks by statistics; the mapping of their indices to bits
+    and symbols exactly as JAX maps them."""
+    cls = tp.QAMSource if kind == "qam" else tp.PAMSource
+    src = cls(nbps, return_indices=True, return_bits=True, seed=3)
+    x, ind, b = src([50, 400])
+    assert x.shape == ind.shape == (50, 400) and b.shape == (50, 400 * nbps)
+    assert x.dtype == torch.complex64 and ind.dtype == torch.int32
+    # the symbols and indices of the bits, as the JAX package maps them
+    xj, indj = jp.Mapper(kind, nbps, return_indices=True)(
+        jnp.asarray(b.numpy()))
+    np.testing.assert_array_equal(ind.numpy(), np.asarray(indj))
+    np.testing.assert_array_equal(x.numpy(), np.asarray(xj))
+    np.testing.assert_array_equal(
+        b.numpy().reshape(50, 400, nbps),
+        np.asarray(jp.SymbolInds2Bits(nbps)(np.asarray(indj))))
+    # uniform over the 2^K points: 2e4 draws, each count within 5 std
+    counts = np.bincount(ind.numpy().reshape(-1), minlength=2 ** nbps)
+    n, p = ind.numel(), 1 / 2 ** nbps
+    assert np.all(np.abs(counts - n * p) < 5 * np.sqrt(n * p * (1 - p)))
+    # unit average energy
+    assert abs(float((x.abs() ** 2).mean()) - 1) < 0.03
+    # a seed reproduces the draw; another seed does not
+    assert torch.equal(cls(nbps, seed=3)([50, 400]), x)
+    assert not torch.equal(cls(nbps, seed=4)([50, 400]), x)
+    assert tp.SymbolSource(kind, nbps)([2, 3]).shape == (2, 3)
+
+
+# Separable against table path in the port: the table path's exponents
+# carry the off-axis distance that the separable path drops, so the two
+# round apart by a few ULP of the largest exponent of the symbol,
+# max_p |y - p|^2 / no (measured <= 4 ULP, 4- to 256-QAM). chip_smoke.py
+# phase 13 holds the card to the same bound at the flagship's shape.
+SEP_TABLE_ULPS = 8
+
+
+@pytest.mark.parametrize("nbps", [2, 4, 6, 8])
+def test_separable_and_table_paths_agree(nbps):
+    rng = np.random.default_rng(30 + nbps)
+    pts = jp.qam(nbps).astype(np.complex64)
+    for method in ("app", "maxlog"):
+        dem = tp.Demapper(method, "qam", nbps)
+        for no in (0.01, 0.2, 1.0):
+            y = _noisy_symbols(rng, nbps, no, (8, 500))
+            no_sym = (no * (0.5 + rng.random(y.shape))).astype(np.float32)
+            sep = dem(torch.as_tensor(y), torch.as_tensor(no_sym)).numpy()
+            table = dem(torch.as_tensor(y), torch.as_tensor(no_sym),
+                        points=dem.constellation.raw_points).numpy()
+            largest = (np.abs(y[..., None] - pts) ** 2
+                       / no_sym[..., None]).max(-1)
+            bound = SEP_TABLE_ULPS * np.finfo(np.float32).eps \
+                * np.repeat(largest, nbps, axis=-1)
+            assert np.all(np.abs(sep - table) <= bound)
