@@ -74,7 +74,23 @@ the boxplus magnitude):
     call, every tensor on the card, each estimator against itself on the
     CPU, the estimation and equalization stages timed; the first again
     from a checkpoint (no decoder call, the same BLER) and the last with
-    a ``Profiler``.
+    a ``Profiler``;
+15. runs the polar link of bench.py:272-325 (``Polar5GEncoder(512,
+    1024)``, QPSK, AWGN, APP demapper, ``Polar5GDecoder``) through
+    ``sim_ber``: SC at batch 8192 (1.5 dB) and SCL-8 (``use_spc=True``)
+    at batch 4096 (1.0 dB);
+16. runs a terminated rate-1/2 K=7 convolutional code (Viterbi and BCJR
+    decoders, 2.5 dB) and the rate-1/3 LTE turbo code (6 iterations, 0.3
+    dB), k=1024, QPSK over AWGN, through ``sim_ber``.
+
+Phases 15 and 16 run in a process of their own; each link is held to
+its BLER band from a JAX run of the same link
+(``tools/fec_links_bler.py``), with every tensor on the card and no
+lifted kernel launched, and its decoder on one batch against the same
+decoder on the CPU; they print ms per decoder call, launches per call,
+the stages of an MC iteration and the info-bit Mbit/s (the polar ones
+under bench.py's names). No kernel serves them: the JAX package's
+polar, convolutional and turbo decoders are XLA code.
 
 Prints the kernels' JSON line (one entry per kernel variant, ``ms`` /
 ``plain_ms`` / ``bound_ms`` at the entry's ``shape``), the card again,
@@ -83,6 +99,7 @@ Run from the repository root: ``python3 chip_smoke.py``.
 """
 
 import json
+import multiprocessing
 import os
 import re
 import subprocess
@@ -104,7 +121,11 @@ from sionna_tpu_torch.phy.fec.ldpc.decoding import (LAYERED_BP_KERNEL,
                                                     LIFTED_BP_KERNEL,
                                                     layered_bp_cuda,
                                                     lifted_bp_cuda)
+from sionna_tpu_torch.phy.fec.conv import (BCJRDecoder, ConvEncoder,
+                                           ViterbiDecoder)
 from sionna_tpu_torch.phy.fec.linear import LinearEncoder
+from sionna_tpu_torch.phy.fec.polar import Polar5GDecoder, Polar5GEncoder
+from sionna_tpu_torch.phy.fec.turbo import TurboDecoder, TurboEncoder
 from sionna_tpu_torch.phy.fec.utils import load_parity_check_examples, pcm2gm
 from sionna_tpu_torch.phy.mimo import StreamManagement
 from sionna_tpu_torch.phy.ofdm import (LMMSEEqualizer, LMMSEInterpolator,
@@ -174,6 +195,27 @@ RECEIVERS_JAX = {("lin_lmmse", 8.0): (6093, 16384),
                  ("lintavg_zf", 8.0): (2118, 16384),
                  ("lmmse_lmmse", 8.0): (265, 32768),
                  ("nn_mf", 8.0): (8095, 16384)}
+# The FEC links of phases 15 and 16 (tools/fec_links_bler.py: QPSK over
+# AWGN, APP demapper): Eb/N0 in dB, batch, MC iterations through sim_ber.
+# The polar batches are bench.py's (bench.py:272-325); the conv and turbo
+# decoders' eager loops over time keep their block counts small
+FEC_LINKS = {"polar_sc": dict(ebno_db=1.5, batch=8192, mc_iter=20),
+             "polar_scl8": dict(ebno_db=1.0, batch=4096, mc_iter=20),
+             "conv_viterbi": dict(ebno_db=2.5, batch=2048, mc_iter=16),
+             "conv_bcjr": dict(ebno_db=2.5, batch=2048, mc_iter=16),
+             "turbo": dict(ebno_db=0.3, batch=4096, mc_iter=5)}
+# Their BLER from the JAX package's run of the same links on the CPU
+# (tools/fec_links_bler.py at --batch 2048 --blocks 32768: SC seeds 0-3,
+# the others seed 0; SCL-8 at --batch 1024 --blocks 16384, seeds 0-5):
+# (block errors, blocks)
+FEC_JAX = {("polar_sc", 1.5): (55819, 131072),
+           ("polar_scl8", 1.0): (25615, 98304),
+           ("conv_viterbi", 2.5): (6658, 32768),
+           ("conv_bcjr", 2.5): (7112, 32768),
+           ("turbo", 0.3): (11717, 32768)}
+# Blocks whose decisions may differ between a decoder on the card and on
+# the CPU on the same LLRs (exp/log round differently there), per 1000
+FEC_CPU_DIFF_PER_MILLE = 10
 # The separable demap against the table demap: a few ULP of the largest
 # exponent of the symbol, max_p |y - p|^2 / no (SEP_TABLE_ULPS of
 # tests/test_torch_mapping.py)
@@ -190,6 +232,9 @@ def bler_band(schedule, ebno_db):
     elif schedule in RECEIVERS:
         errors, blocks = RECEIVERS_JAX[(schedule, ebno_db)]
         n_port = RECEIVERS[schedule][2] * RECEIVERS[schedule][3]
+    elif schedule in FEC_LINKS:
+        errors, blocks = FEC_JAX[(schedule, ebno_db)]
+        n_port = FEC_LINKS[schedule]["batch"] * FEC_LINKS[schedule]["mc_iter"]
     else:
         errors, blocks = FLAGSHIP_JAX[(schedule, ebno_db)]
         n_port = FLAGSHIP["mc_iter"] * FLAGSHIP["batch"]
@@ -834,6 +879,205 @@ def run_receivers(dev):
     return out
 
 
+def fec_codec(name, dev):
+    """(encoder, decoder, k, coderate) of FEC link ``name`` on ``dev``:
+    tools/fec_links_bler.py's codecs."""
+    if name.startswith("polar"):
+        enc = Polar5GEncoder(512, 1024, device=dev)
+        dec = Polar5GDecoder(enc, dec_type="SC", device=dev) \
+            if name == "polar_sc" else \
+            Polar5GDecoder(enc, dec_type="SCL", list_size=8, device=dev)
+        return enc, dec, 512, 512 / 1024
+    if name.startswith("conv"):
+        enc = ConvEncoder(rate=1 / 2, constraint_length=7, terminate=True,
+                          device=dev)
+        dec = ViterbiDecoder(encoder=enc, device=dev) \
+            if name == "conv_viterbi" else BCJRDecoder(encoder=enc, device=dev)
+        return enc, dec, 1024, 1 / 2
+    enc = TurboEncoder(rate=1 / 3, constraint_length=4, terminate=True,
+                       device=dev)
+    return enc, TurboDecoder(enc, num_iter=6, device=dev), 1024, 1 / 3
+
+
+class FecLink:
+    """Phases 15-16: QPSK over AWGN with the APP demapper around the
+    codec of FEC link ``name``; a call is one MC iteration (the sim_ber
+    model)."""
+
+    def __init__(self, dev, name):
+        self.dev, self.name = dev, name
+        self.enc, self.dec, self.k, self.rate = fec_codec(name, dev)
+        self.src = BinarySource(device=dev)
+        self.mapper = Mapper("qam", 2, device=dev)
+        self.demapper = Demapper("app", "qam", 2, device=dev)
+        self.awgn = AWGN(device=dev)
+        self.calls = 0
+        self.devices = set()
+
+    def no(self, ebno_db):
+        return ebnodb2no(ebno_db, 2, self.rate).to(self.dev)
+
+    def llrs(self, batch_size, ebno_db):
+        """Info bits and their channel LLRs."""
+        no = self.no(ebno_db)
+        b = self.src([batch_size, self.k])
+        return b, self.demapper(self.awgn(self.mapper(self.enc(b)), no), no)
+
+    def __call__(self, batch_size, ebno_db):
+        no = self.no(ebno_db)
+        b = self.src([batch_size, self.k])
+        x = self.mapper(self.enc(b))
+        y = self.awgn(x, no)
+        llr = self.demapper(y, no)
+        b_hat = self.dec(llr)
+        self.calls += 1
+        for t in (no, b, x, y, llr, b_hat):
+            self.devices.add(t.device.type)
+        return b, b_hat
+
+    def stage_ms(self, batch_size, ebno_db, reps):
+        """Median milliseconds of each stage of one MC iteration over
+        ``reps`` iterations after one warm-up (CUDA events)."""
+        names = ["source+encode+map", "channel (AWGN)", "demap", "decode"]
+        times = []
+        for rep in range(reps + 1):
+            ev = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(len(names) + 1)]
+            no = self.no(ebno_db)
+            ev[0].record()
+            x = self.mapper(self.enc(self.src([batch_size, self.k])))
+            ev[1].record()
+            y = self.awgn(x, no)
+            ev[2].record()
+            llr = self.demapper(y, no)
+            ev[3].record()
+            self.dec(llr)
+            ev[4].record()
+            torch.cuda.synchronize()
+            if rep:
+                times.append([ev[i].elapsed_time(ev[i + 1])
+                              for i in range(len(names))])
+        return dict(zip(names, np.median(times, axis=0)))
+
+
+def median_ms(fn, reps):
+    """Median milliseconds of ``reps`` calls of ``fn`` after one warm-up
+    call, each timed by CUDA events."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def launches_per_call(fn):
+    """(CUDA kernels and copies on the device, cudaLaunchKernel calls on
+    the host) of one call of ``fn``, by ``torch.profiler``."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device = sum(e.count for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    host = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    return device, host
+
+
+FEC_METRICS = {"polar_sc": "polar5g_sc_coded_info_bit_throughput",
+               "polar_scl8": "polar5g_scl8_coded_info_bit_throughput"}
+
+
+def run_fec_link(dev, name, reps):
+    """Phases 15-16: FEC link ``name`` through sim_ber at its Eb/N0 with
+    every lifted-kernel count at 0 just before; its band, every tensor on
+    the card, no lifted kernel; its decoder on one batch on the card
+    against the same decoder on the CPU; ms per decoder call (median of
+    ``reps``), launches per call, the stages of one MC iteration and the
+    info-bit Mbit/s (bench.py's names for the polar links). Returns
+    the decoder call (on a batch of LLRs) whose launches ``fec_phases``
+    counts once every link is timed."""
+    cfg = FEC_LINKS[name]
+    ebno_db, batch = cfg["ebno_db"], cfg["batch"]
+    link = FecLink(dev, name)
+    reset_launches()
+    t0 = time.perf_counter()
+    _, bler = sim_ber(link, [ebno_db], batch_size=batch,
+                      max_mc_iter=cfg["mc_iter"], early_stop=False,
+                      verbose=True)
+    torch.cuda.synchronize()
+    bler = float(bler[0])
+    lo, hi = bler_band(name, ebno_db)
+    print(f"    {name} at {ebno_db} dB, batch {batch} x {cfg['mc_iter']}: "
+          f"BLER {bler} (band [{lo:.4f}, {hi:.4f}]), {link.calls} decoder "
+          f"calls, devices {sorted(link.devices)}, "
+          f"{time.perf_counter() - t0:.2f} s")
+    if not lo <= bler <= hi:
+        raise AssertionError(f"{name} BLER {bler} outside [{lo}, {hi}]")
+    check_no_kernel(name, link.devices)
+    # the decoder on the card against the same decoder on the CPU
+    n_cpu = 1024 if name in ("polar_sc", "conv_viterbi") else 256
+    _, llr = link.llrs(n_cpu, ebno_db)
+    cpu_dec = fec_codec(name, "cpu")[1]
+    diff = int((link.dec(llr).cpu() != cpu_dec(llr.cpu())).any(-1).sum())
+    print(f"    {name}: {diff} of {n_cpu} blocks decode differently on the "
+          f"card and on the CPU (bound {FEC_CPU_DIFF_PER_MILLE} per 1000)")
+    if diff * 1000 > FEC_CPU_DIFF_PER_MILLE * n_cpu:
+        raise AssertionError(f"{name}: {diff} of {n_cpu} blocks differ "
+                             "between the card and the CPU")
+    _, llr = link.llrs(batch, ebno_db)
+    with torch.no_grad():
+        dec_ms = median_ms(lambda: link.dec(llr), reps)
+        stages = link.stage_ms(batch, ebno_db, reps)
+        it_ms = median_ms(lambda: link(batch, ebno_db), reps)
+    print(f"    {name}: decoder {dec_ms:.3f} ms per call (batch {batch}, "
+          f"median of {reps})")
+    total = sum(stages.values())
+    for stage, t in stages.items():
+        print(f"      {stage:20s} {t:9.3f} ms  {100 * t / total:5.1f} %")
+    print(f"      {'sum of stages':20s} {total:9.3f} ms")
+    print(f"    {FEC_METRICS.get(name, name + ' info-bit throughput')}: "
+          f"{batch * link.k / it_ms / 1e3:.3f} Mbit/s ({it_ms:.3f} ms per MC "
+          f"iteration, median of {reps})")
+    return lambda: link.dec(llr)
+
+
+def fec_phases(card):
+    """Phases 15 and 16, run in a fresh process by ``main``."""
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"[15] polar link (5G k=512 n=1024, QPSK, AWGN, APP demapper; SC "
+          f"at batch 8192, SCL-8 at 4096) through sim_ber on {card}")
+    calls = {name: run_fec_link(dev, name, reps=5)
+             for name in ("polar_sc", "polar_scl8")}
+    print(f"[16] convolutional (rate 1/2, K=7) and turbo (rate 1/3, K=4, 6 "
+          f"iterations) codes, k=1024, through sim_ber on {card}; cut to "
+          + ", ".join(f"{n} {FEC_LINKS[n]['mc_iter']} x "
+                      f"{FEC_LINKS[n]['batch']}" for n in
+                      ("conv_viterbi", "conv_bcjr", "turbo"))
+          + " blocks (their decoders loop over time eagerly)")
+    for name in ("conv_viterbi", "conv_bcjr", "turbo"):
+        calls[name] = run_fec_link(dev, name, reps=3)
+    # the profiler last: every launch after its window costs more
+    print("[15-16] launches per decoder call (torch.profiler, one call at "
+          "the timed batch)")
+    for name, call in calls.items():
+        with torch.no_grad():
+            device, host = launches_per_call(call)
+        print(f"    {name}: {device} kernels and copies on the device, "
+              f"{host} cudaLaunchKernel")
+    sys.stdout.flush()
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; none is available")
@@ -1076,6 +1320,23 @@ def main():
     print(f"[14] flagship receiver variants through sim_ber at 8 dB, BP-20 "
           f"(K1), on {card}")
     run_receivers(dev)
+
+    # phases 15-16 time eager, launch-bound decoders in a process of
+    # their own: after a torch.profiler window (phases 8 and 14) every
+    # later launch in the process costs more (the SC decoder went from
+    # 20.7 to 38.5-41.9 ms per call)
+    sys.stdout.flush()
+    torch.cuda.empty_cache()
+    proc = multiprocessing.get_context("spawn").Process(
+        target=fec_phases, args=(card,))
+    proc.start()
+    proc.join(timeout=600)
+    if proc.is_alive():
+        proc.terminate()
+        proc.join()
+        raise AssertionError("phases 15-16 did not end within 600 s")
+    if proc.exitcode != 0:
+        raise AssertionError(f"phases 15-16 failed (exit {proc.exitcode})")
 
     print(json.dumps({"kernels": [{
         "name": name,

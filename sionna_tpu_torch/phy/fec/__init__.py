@@ -1,5 +1,15 @@
-"""Forward error correction (counterpart of ``sionna_tpu.phy.fec``; the
-port has LDPC, the linear codes, the FEC utilities and the row-column
-interleaver)."""
+"""Forward error correction (counterpart of ``sionna_tpu.phy.fec``)."""
 
-from . import interleaving, ldpc, linear, utils
+from . import crc
+from . import scrambling
+from . import interleaving
+from . import ldpc
+from . import polar
+from . import conv
+from . import turbo
+from . import linear
+from . import utils
+from .crc import CRCEncoder, CRCDecoder
+from .scrambling import Scrambler, TB5GScrambler, Descrambler
+from .interleaving import (RowColumnInterleaver, RandomInterleaver,
+                           Deinterleaver, Turbo3GPPInterleaver)

@@ -191,6 +191,13 @@ class Turbo3GPPInterleaver(Block):
             self._perm_cache[frame_size] = (perm, np.argsort(perm))
         return self._perm_cache[frame_size]
 
+    def numpy_structure(self):
+        """The permutation of the last frame size interleaved, for
+        :func:`~sionna_tpu_torch.phy.utils.interop.load_numpy_state`."""
+        if self.frame_size is None:
+            return {}
+        return {"perm": self._perms(self.frame_size)[0]}
+
     def forward(self, x, inverse=None):
         x = torch.as_tensor(x)
         self.frame_size = x.shape[self._axis]

@@ -16,8 +16,17 @@ Names are the port's dotted module paths: ``"raw_points"`` on a
 ``ResourceGridMapper`` ``"pilot_pattern.mask"`` and
 ``"pilot_pattern.pilots"``; on an ``OFDMChannel`` with a TDL model
 ``"gen.channel_model.delays"`` (normalised), ``".mean_powers"`` (diffuse
-cluster powers) and, for LoS models, ``".los_power"``. Objects that are
-not modules (a ``PilotPattern``, a ``TDL``) take the same names without
+cluster powers) and, for LoS models, ``".los_power"``; on a
+``Polar5GEncoder`` ``"frozen_pos"``, ``"ind_rate_matching"``,
+``"ind_input_int"`` (downlink) and ``"enc_crc.parity_matrix"``; on a
+``CRCEncoder`` ``"parity_matrix"`` (of the last length encoded); on a
+``ConvEncoder`` or a Viterbi/BCJR decoder ``"trellis.<table>"`` (the
+``Trellis`` tables ``to_nodes``, ``from_nodes``, ``op_mat``,
+``ip_by_tonode``, ``op_by_tonode``, ``op_by_fromnode``,
+``op_bits_by_fromnode``); on a ``TurboEncoder``
+``"internal_interleaver.perm"`` (of the last frame size) and
+``"convencoder.trellis.<table>"``. Objects that are not modules (a
+``PilotPattern``, a ``TDL``, a ``Trellis``) take the same names without
 the prefix.
 """
 
