@@ -83,6 +83,32 @@ the boxplus magnitude):
     decoders, 2.5 dB) and the rate-1/3 LTE turbo code (6 iterations, 0.3
     dB), k=1024, QPSK over AWGN, through ``sim_ber``.
 
+17. runs BASELINE config 3, ``examples/03_mimo_ofdm_cdl.py`` at its
+    widths (128-FFT grid at 30 kHz, 4 streams, 4 x 4 cross-polarized
+    38.901 arrays, CDL-B uplink, 16-QAM, LDPC n=6144, LS "lin",
+    ``LinearDetector("lmmse", "bit", "app")``, min-sum BP-12 through
+    K1's min-sum variant), through ``sim_ber`` at batch 512 and 8 dB;
+18. runs the same widths downlink in the time domain: RZF precoding,
+    ``OFDMModulator``, ``cir_to_time_channel`` and ``ApplyTimeChannel``
+    over ~1,900 CDL time steps, ``OFDMDemodulator``, LS "nn", LMMSE and
+    boxplus-phi BP-20 through K1, batch 64, 10 dB; its modulator and
+    demodulator on one batch against themselves on the CPU;
+19. runs the detector links of ``tests/test_integration_detectors.py``
+    at a 128-FFT grid (CDL-A, 4 streams, 8 BS antennas, QPSK, perfect
+    CSI, batch 64): LMMSE, K-best (k=16), EP (l=10), MMSE-PIC (3
+    iterations) and ML (max-log), bit output, decoded by K1; each
+    detector's hard decisions on one batch against the same detector on
+    the CPU, its ms and launches per call.
+
+Phases 17-19 run in a process of their own: each link through
+``sim_ber`` against its band from a JAX run of the same link
+(``tools/mimo_ofdm_cdl_bler.py``), every tensor on ``cuda:0``, one K1
+launch per decoder call; they print ms per stage (CUDA events), per MC
+iteration, the info-bit Mbit/s and the peak memory. No kernel is
+written for them: the JAX package's CDL, precoders and detectors are
+XLA code. Phase 17 is the main path of K1's min-sum variant, whose
+launches the kernels line reports.
+
 Phases 15 and 16 run in a process of their own; each link is held to
 its BLER band from a JAX run of the same link
 (``tools/fec_links_bler.py``), with every tensor on the card and no
@@ -101,6 +127,7 @@ Run from the repository root: ``python3 chip_smoke.py``.
 import json
 import multiprocessing
 import os
+import queue
 import re
 import subprocess
 import sys
@@ -111,8 +138,12 @@ import numpy as np
 import torch
 
 from sionna_tpu_torch.phy import AWGN, BinarySource, Demapper, Mapper
-from sionna_tpu_torch.phy.channel import OFDMChannel
-from sionna_tpu_torch.phy.channel.tr38901 import TDL
+from sionna_tpu_torch.phy.channel import (ApplyTimeChannel, OFDMChannel,
+                                          cir_to_ofdm_channel,
+                                          cir_to_time_channel,
+                                          subcarrier_frequencies,
+                                          time_lag_discrete_time_channel)
+from sionna_tpu_torch.phy.channel.tr38901 import CDL, TDL, AntennaArray
 from sionna_tpu_torch.phy.fec.interleaving import (Deinterleaver,
                                                    RowColumnInterleaver)
 from sionna_tpu_torch.phy.fec.ldpc import (LDPC5GDecoder, LDPC5GEncoder,
@@ -128,11 +159,15 @@ from sionna_tpu_torch.phy.fec.polar import Polar5GDecoder, Polar5GEncoder
 from sionna_tpu_torch.phy.fec.turbo import TurboDecoder, TurboEncoder
 from sionna_tpu_torch.phy.fec.utils import load_parity_check_examples, pcm2gm
 from sionna_tpu_torch.phy.mimo import StreamManagement
-from sionna_tpu_torch.phy.ofdm import (LMMSEEqualizer, LMMSEInterpolator,
-                                       LSChannelEstimator, MFEqualizer,
+from sionna_tpu_torch.phy.ofdm import (EPDetector, KBestDetector,
+                                       LinearDetector, LMMSEEqualizer,
+                                       LMMSEInterpolator, LSChannelEstimator,
+                                       MaximumLikelihoodDetector,
+                                       MFEqualizer, MMSEPICDetector,
+                                       OFDMDemodulator, OFDMModulator,
                                        ResourceGrid, ResourceGridMapper,
-                                       ZFEqualizer, tdl_freq_cov_mat,
-                                       tdl_time_cov_mat)
+                                       RZFPrecoder, ZFEqualizer,
+                                       tdl_freq_cov_mat, tdl_time_cov_mat)
 from sionna_tpu_torch.phy.utils import Profiler, ebnodb2no, sim_ber
 from sionna_tpu_torch.tools import ldpc_tune, sass_ops
 
@@ -150,7 +185,9 @@ KERNELS = (LIFTED_BP_KERNEL, LAYERED_BP_KERNEL)
 _DEC = "sionna_tpu/phy/fec/ldpc/decoding.py"
 # Every kernel variant: (name in the kernels line, the tuning sweep's
 # label, kernel, variant as the wrapper counts it, TPU code it
-# replaces); its knobs are those of its label in ldpc_tune.KERNEL_VARIANTS
+# replaces); its knobs are those of its label in ldpc_tune.KERNEL_VARIANTS.
+# K1's min-sum check node (K2) is a property of the decoder's code, not a
+# knob: no sweep label, f32 knobs on a min-sum decoder (phase 17's)
 VARIANTS = [
     ("ldpc_lifted_bp", "K1 f32", LIFTED_BP_KERNEL, "f32",
      LIFTED_BP_KERNEL.replaces),
@@ -158,6 +195,8 @@ VARIANTS = [
      f"{_DEC}:1141"),
     ("ldpc_lifted_bp_ratio", "K1 f32 ratio", LIFTED_BP_KERNEL, "f32+ratio",
      f"{_DEC}:880"),
+    ("ldpc_lifted_bp_minsum", None, LIFTED_BP_KERNEL, "f32+minsum",
+     f"{_DEC}:886"),
     ("ldpc_layered_bp", "K3 layered f32", LAYERED_BP_KERNEL, "f32",
      LAYERED_BP_KERNEL.replaces),
     ("ldpc_layered_bp_bf16", "K3 layered bf16", LAYERED_BP_KERNEL, "bf16",
@@ -220,6 +259,34 @@ FEC_CPU_DIFF_PER_MILLE = 10
 # exponent of the symbol, max_p |y - p|^2 / no (SEP_TABLE_ULPS of
 # tests/test_torch_mapping.py)
 SEP_TABLE_ULPS = 8
+# The MIMO-OFDM links over CDL of phases 17-19 (tools/mimo_ofdm_cdl_bler.py):
+# Eb/N0 in dB, batch (of 4-stream grids: 4 blocks each), MC iterations
+# through sim_ber. ul_freq is BASELINE config 3 at batch 512
+# (2048 codewords per iteration); dl_time and the detectors at the
+# example's batch 64
+MIMO_LINKS = {"ul_freq": dict(ebno_db=8.0, batch=512, mc_iter=16),
+              "dl_time": dict(ebno_db=10.0, batch=64, mc_iter=64),
+              "det_lmmse": dict(ebno_db=-2.0, batch=64, mc_iter=32),
+              "det_kbest": dict(ebno_db=-6.0, batch=64, mc_iter=32),
+              "det_ep": dict(ebno_db=-4.0, batch=64, mc_iter=32),
+              "det_mmsepic": dict(ebno_db=-2.0, batch=64, mc_iter=32),
+              "det_ml": dict(ebno_db=-6.0, batch=64, mc_iter=32)}
+MIMO_STREAMS = 4
+# Their BLER from the JAX package's run of the same links on the CPU
+# (tools/mimo_ofdm_cdl_bler.py, seeds 0 and 1 pooled: ul_freq at --blocks
+# 32768 --batch 32, dl_time at --blocks 8192 --batch 8, the detectors at
+# --blocks 8192 --batch 16): (block errors, blocks)
+MIMO_JAX = {("ul_freq", 8.0): (16565, 65536),
+            ("dl_time", 10.0): (4627, 16384),
+            ("det_lmmse", -2.0): (5368, 16384),
+            ("det_kbest", -6.0): (1414, 16384),
+            ("det_ep", -4.0): (2171, 16384),
+            ("det_mmsepic", -2.0): (4935, 16384),
+            ("det_ml", -6.0): (1259, 16384)}
+# Bits whose detector decisions may differ between the card and the CPU
+# on the same inputs (Cholesky, QR and exp/log round differently there:
+# only LLRs within rounding of 0 flip), per 1000
+DET_CPU_DIFF_PER_MILLE = 1
 
 
 def bler_band(schedule, ebno_db):
@@ -235,6 +302,10 @@ def bler_band(schedule, ebno_db):
     elif schedule in FEC_LINKS:
         errors, blocks = FEC_JAX[(schedule, ebno_db)]
         n_port = FEC_LINKS[schedule]["batch"] * FEC_LINKS[schedule]["mc_iter"]
+    elif schedule in MIMO_LINKS:
+        errors, blocks = MIMO_JAX[(schedule, ebno_db)]
+        cfg = MIMO_LINKS[schedule]
+        n_port = cfg["batch"] * MIMO_STREAMS * cfg["mc_iter"]
     else:
         errors, blocks = FLAGSHIP_JAX[(schedule, ebno_db)]
         n_port = FLAGSHIP["mc_iter"] * FLAGSHIP["batch"]
@@ -261,7 +332,7 @@ def variant_calls(name, lift):
     """(kernel call, plain call) of variant ``name`` on ``lift``; each
     takes (LLRs, iterations)."""
     _, label, kern, _, _ = next(v for v in VARIANTS if v[0] == name)
-    knobs = ldpc_tune.KERNEL_VARIANTS[label][1]
+    knobs = ldpc_tune.KERNEL_VARIANTS[label][1] if label else {}
     if kern is LAYERED_BP_KERNEL:
         return (lambda x, it: layered_bp_cuda(lift, x, it, **knobs),
                 lambda x, it: lift.decode_layered(x, it, **knobs))
@@ -390,8 +461,10 @@ def check_kernel_against_plain(dev, layered):
     max |kernel - plain|} (0)."""
     gen = torch.Generator(device=dev).manual_seed(1)
     kern = LAYERED_BP_KERNEL if layered else LIFTED_BP_KERNEL
-    names = [v[0] for v in VARIANTS if v[2] is kern]
-    max_err = dict.fromkeys(names, 0.0)
+    # the min-sum variant is K1 f32 on a min-sum decoder: run under its
+    # f32 name, its errors kept under its own
+    names = [v[0] for v in VARIANTS if v[2] is kern and v[1]]
+    max_err = {v[0]: 0.0 for v in VARIANTS if v[2] is kern}
     iters = (0, 1, 10) if layered else (0, 1, 20)
     # (k, n, nbps, batch, converging / non-converging Eb/N0 in dB); the
     # plain layered decode launches ~50 small ops per base edge and row,
@@ -433,7 +506,10 @@ def check_kernel_against_plain(dev, layered):
                             got, plain(llr_int, it),
                             f"{name} ({k},{n}) {cn} {ebno_db} dB {it} "
                             "iters"))
-                    max_err[name] = max(max_err[name], *errs)
+                    entry = ("ldpc_lifted_bp_minsum"
+                             if name == "ldpc_lifted_bp" and cn != "boxplus"
+                             else name)
+                    max_err[entry] = max(max_err[entry], *errs)
                     # classic convention: a negative marginal decides 1
                     ber = float(((got[:, :k] < 0).float() != b).float()
                                 .mean())
@@ -899,6 +975,30 @@ def fec_codec(name, dev):
     return enc, TurboDecoder(enc, num_iter=6, device=dev), 1024, 1 / 3
 
 
+def marked_stage_ms(run, reps):
+    """Median ms of each stage of ``run(mark)``, one MC iteration that
+    calls ``mark(name)`` at the end of each stage, over ``reps``
+    iterations after one warm-up (CUDA events)."""
+    times, names = [], []
+    for rep in range(reps + 1):
+        names.clear()
+        events = [torch.cuda.Event(enable_timing=True)]
+        events[0].record()
+
+        def mark(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            names.append(name)
+
+        run(mark)
+        torch.cuda.synchronize()
+        if rep:
+            times.append([events[i].elapsed_time(events[i + 1])
+                          for i in range(len(names))])
+    return dict(zip(names, np.median(times, axis=0)))
+
+
 class FecLink:
     """Phases 15-16: QPSK over AWGN with the APP demapper around the
     codec of FEC link ``name``; a call is one MC iteration (the sim_ber
@@ -938,26 +1038,19 @@ class FecLink:
     def stage_ms(self, batch_size, ebno_db, reps):
         """Median milliseconds of each stage of one MC iteration over
         ``reps`` iterations after one warm-up (CUDA events)."""
-        names = ["source+encode+map", "channel (AWGN)", "demap", "decode"]
-        times = []
-        for rep in range(reps + 1):
-            ev = [torch.cuda.Event(enable_timing=True)
-                  for _ in range(len(names) + 1)]
-            no = self.no(ebno_db)
-            ev[0].record()
+        no = self.no(ebno_db)
+
+        def run(mark):
             x = self.mapper(self.enc(self.src([batch_size, self.k])))
-            ev[1].record()
+            mark("source+encode+map")
             y = self.awgn(x, no)
-            ev[2].record()
+            mark("channel (AWGN)")
             llr = self.demapper(y, no)
-            ev[3].record()
+            mark("demap")
             self.dec(llr)
-            ev[4].record()
-            torch.cuda.synchronize()
-            if rep:
-                times.append([ev[i].elapsed_time(ev[i + 1])
-                              for i in range(len(names))])
-        return dict(zip(names, np.median(times, axis=0)))
+            mark("decode")
+
+        return marked_stage_ms(run, reps)
 
 
 def median_ms(fn, reps):
@@ -978,7 +1071,9 @@ def median_ms(fn, reps):
 
 def launches_per_call(fn):
     """(CUDA kernels and copies on the device, cudaLaunchKernel calls on
-    the host) of one call of ``fn``, by ``torch.profiler``."""
+    the host, ms of device time) of one call of ``fn``, by
+    ``torch.profiler``; the device time sums the device-side events' self
+    times (each kernel and copy once)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -986,11 +1081,12 @@ def launches_per_call(fn):
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    events = prof.key_averages()
-    device = sum(e.count for e in events
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-    host = sum(e.count for e in events if e.key == "cudaLaunchKernel")
-    return device, host
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    host = sum(e.count for e in prof.key_averages()
+               if e.key == "cudaLaunchKernel")
+    return (sum(e.count for e in events), host,
+            sum(e.self_device_time_total for e in events) / 1e3)
 
 
 FEC_METRICS = {"polar_sc": "polar5g_sc_coded_info_bit_throughput",
@@ -1051,8 +1147,9 @@ def run_fec_link(dev, name, reps):
     return lambda: link.dec(llr)
 
 
-def fec_phases(card):
-    """Phases 15 and 16, run in a fresh process by ``main``."""
+def fec_phases(card, results):
+    """Phases 15 and 16, run in a fresh process by ``main``; puts an
+    empty dict on ``results`` when they pass."""
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"[15] polar link (5G k=512 n=1024, QPSK, AWGN, APP demapper; SC "
@@ -1072,10 +1169,340 @@ def fec_phases(card):
           "the timed batch)")
     for name, call in calls.items():
         with torch.no_grad():
-            device, host = launches_per_call(call)
+            device, host, busy = launches_per_call(call)
         print(f"    {name}: {device} kernels and copies on the device, "
-              f"{host} cudaLaunchKernel")
+              f"{host} cudaLaunchKernel, {busy:.3f} ms of device time")
     sys.stdout.flush()
+    results.put({})
+
+
+def cross_array(num_cols, fc):
+    """One row of ``num_cols`` cross-polarized 38.901 elements."""
+    return AntennaArray(num_rows=1, num_cols=num_cols, polarization="dual",
+                        polarization_type="cross", antenna_pattern="38.901",
+                        carrier_frequency=fc)
+
+
+class MimoLink:
+    """Phases 17-19: one of ``tools/mimo_ofdm_cdl_bler.py``'s links on
+    the port's public blocks; a call is one MC iteration (the sim_ber
+    model) through ``stages(batch, ebno_db, mark)``, which ``mark``s the
+    end of each stage for the stage table: one pipeline for both."""
+
+    def __init__(self, dev, name):
+        self.dev, self.name = dev, name
+        self.calls, self.devices = 0, set()
+        self.src = BinarySource(device=dev)
+        sm = StreamManagement(np.array([[1]]), MIMO_STREAMS)
+        if name.startswith("det_"):
+            self.nbps, fc, scs, model, ut, bs = 2, 2.6e9, 15e3, "A", 2, 4
+            grid = {}
+        else:
+            self.nbps, fc, scs, model, ut, bs = 4, 3.5e9, 30e3, "B", 2, 2
+            grid = dict(pilot_pattern="kronecker",
+                        pilot_ofdm_symbol_indices=[2, 11])
+            if name == "dl_time":
+                grid.update(cyclic_prefix_length=6,
+                            num_guard_carriers=[2, 1], dc_null=True)
+        self.rg = rg = ResourceGrid(num_ofdm_symbols=14, fft_size=128,
+                                    subcarrier_spacing=scs, num_tx=1,
+                                    num_streams_per_tx=MIMO_STREAMS, **grid)
+        n = int(rg.num_data_symbols) * self.nbps
+        self.k = n // 2
+        self.enc = LDPC5GEncoder(self.k, n, device=dev)
+        self.mapper = Mapper("qam", self.nbps, device=dev)
+        self.rg_mapper = ResourceGridMapper(rg, device=dev)
+        direction = "downlink" if name == "dl_time" else "uplink"
+        self.cdl = CDL(model, 100e-9, fc, cross_array(ut, fc),
+                       cross_array(bs, fc), direction, min_speed=3.,
+                       device=dev)
+        self.freqs = subcarrier_frequencies(128, scs, device=dev)
+        if name == "ul_freq":
+            self.channel = OFDMChannel(self.cdl, rg, normalize_channel=True,
+                                       device=dev)
+            self.est = LSChannelEstimator(rg, interpolation_type="lin",
+                                          device=dev)
+            self.det = LinearDetector("lmmse", "bit", "app", rg, sm, "qam",
+                                      self.nbps, device=dev)
+            self.dec = LDPC5GDecoder(self.enc, num_iter=12,
+                                     cn_update="minsum", device=dev)
+        elif name == "dl_time":
+            self.l_min, self.l_max = time_lag_discrete_time_channel(
+                rg.bandwidth)
+            self.l_tot = self.l_max - self.l_min + 1
+            self.precoder = RZFPrecoder(rg, sm, return_effective_channel=True,
+                                        device=dev)
+            self.mod = OFDMModulator(6, device=dev)
+            self.demod = OFDMDemodulator(128, self.l_min, 6, device=dev)
+            self.channel = ApplyTimeChannel(rg.num_time_samples, self.l_tot,
+                                            device=dev)
+            self.est = LSChannelEstimator(rg, interpolation_type="nn",
+                                          device=dev)
+            self.equ = LMMSEEqualizer(rg, sm, device=dev)
+            self.demapper = Demapper("app", "qam", self.nbps, device=dev)
+            self.dec = LDPC5GDecoder(self.enc, hard_out=True, device=dev)
+        else:
+            self.channel = OFDMChannel(self.cdl, rg, normalize_channel=True,
+                                       return_channel=True, device=dev)
+            self.det = self.detector(dev)
+            self.dec = LDPC5GDecoder(self.enc, hard_out=True, device=dev)
+
+    def detector(self, dev):
+        """Phase 19's detector of this link, built on ``dev``."""
+        rg, nbps = self.rg, self.nbps
+        sm = StreamManagement(np.array([[1]]), MIMO_STREAMS)
+        kind = self.name[4:]
+        if kind == "lmmse":
+            return LinearDetector("lmmse", "bit", "maxlog", rg, sm, "qam",
+                                  nbps, device=dev)
+        if kind == "kbest":
+            return KBestDetector("bit", MIMO_STREAMS, 16, rg, sm, "qam",
+                                 nbps, device=dev)
+        if kind == "ep":
+            return EPDetector("bit", rg, sm, nbps, device=dev)
+        if kind == "mmsepic":
+            return MMSEPICDetector("bit", rg, sm, num_iter=3,
+                                   constellation_type="qam",
+                                   num_bits_per_symbol=nbps, device=dev)
+        return MaximumLikelihoodDetector("bit", "maxlog", rg, sm, "qam",
+                                         nbps, device=dev)
+
+    def detect(self, det, y, h, no):
+        """Phase 19: the detector's LLRs with perfect CSI."""
+        err_var = torch.zeros((), device=y.device)
+        if self.name == "det_mmsepic":
+            return det(y, h, None, err_var, no)
+        return det(y, h, err_var, no)
+
+    def no(self, ebno_db):
+        return ebnodb2no(ebno_db, self.nbps, 0.5, self.rg).to(self.dev)
+
+    def received(self, batch_size, ebno_db):
+        """Phase 19: (info bits, y, h, no) of one batch."""
+        no = self.no(ebno_db)
+        b = self.src([batch_size, 1, MIMO_STREAMS, self.k])
+        y, h = self.channel(self.rg_mapper(self.mapper(self.enc(b))), no)
+        return b, y, h, no
+
+    def stages(self, batch_size, ebno_db, mark):
+        """One MC iteration, ``mark``ing the end of each stage; returns
+        (b, b_hat) and the tensors it made."""
+        rg, no = self.rg, self.no(ebno_db)
+        b = self.src([batch_size, 1, MIMO_STREAMS, self.k])
+        x_rg = self.rg_mapper(self.mapper(self.enc(b)))
+        mark("source+encode+map+RG map")
+        made = [no, b, x_rg]
+        if self.name == "dl_time":
+            cp = 6
+            a, tau = self.cdl(batch_size, rg.num_time_samples + self.l_tot - 1,
+                              rg.bandwidth)
+            mark(f"CDL generation ({a.shape[-1]} steps)")
+            h_time = cir_to_time_channel(rg.bandwidth, a, tau, self.l_min,
+                                         self.l_max, normalize=True)
+            a_freq = a[..., cp:-1:128 + cp][..., :rg.num_ofdm_symbols]
+            h_freq = cir_to_ofdm_channel(self.freqs, a_freq, tau,
+                                         normalize=True)
+            mark("CIR -> time and OFDM channels")
+            x_pre, _ = self.precoder(x_rg, h_freq)
+            mark("RZF precoding")
+            x_time = self.mod(x_pre)
+            mark("OFDM modulator")
+            y_time = self.channel(x_time, h_time, no)
+            mark("time channel and noise")
+            y = self.demod(y_time)
+            mark("OFDM demodulator")
+            h_hat, err_var = self.est(y, no)
+            mark("LS estimation (nn)")
+            x_hat, no_eff = self.equ(y, h_hat, err_var, no)
+            llr = self.demapper(x_hat, no_eff)
+            mark("LMMSE equalizer + demap")
+            made += [a, tau, h_time, h_freq, x_pre, x_time, y_time, y, h_hat,
+                     err_var, x_hat, no_eff, llr]
+        else:
+            # OFDMChannel's two halves, its CIR sampler split off
+            a, tau = self.cdl(batch_size, rg.num_ofdm_symbols,
+                              1 / rg.ofdm_symbol_duration)
+            mark("CDL generation (14 steps)")
+            h = cir_to_ofdm_channel(self.freqs, a, tau, normalize=True)
+            mark("CIR -> OFDM channel")
+            y = self.channel.app(x_rg, h, no)
+            mark("channel application and noise")
+            made += [a, tau, h, y]
+            if self.name == "ul_freq":
+                h_hat, err_var = self.est(y, no)
+                mark("LS estimation (lin)")
+                llr = self.det(y, h_hat, err_var, no)
+                mark("LMMSE detection (app)")
+                made += [h_hat, err_var]
+            else:
+                llr = self.detect(self.det, y, h, no)
+                mark(f"{self.name[4:]} detection (perfect CSI)")
+            made.append(llr)
+        b_hat = self.dec(llr)
+        mark("decode")
+        return b, b_hat, made + [b_hat]
+
+    def __call__(self, batch_size, ebno_db):
+        b, b_hat, made = self.stages(batch_size, ebno_db, lambda name: None)
+        self.calls += 1
+        self.devices.update(str(t.device) for t in made)
+        return b, b_hat
+
+
+def run_mimo_link(dev, name, decoder_variant):
+    """Phases 17-19: link ``name`` through sim_ber at its Eb/N0 with every
+    count at 0 just before and read just after: its band, every tensor on
+    cuda:0, one K1 launch of ``decoder_variant`` per decoder call, the
+    stages of one MC iteration, ms per iteration, Mbit/s and the peak
+    memory. Returns (link, launches of the variant)."""
+    cfg = MIMO_LINKS[name]
+    ebno_db, batch = cfg["ebno_db"], cfg["batch"]
+    link = MimoLink(dev, name)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    _, bler = sim_ber(link, [ebno_db], batch_size=batch,
+                      max_mc_iter=cfg["mc_iter"], early_stop=False,
+                      verbose=False)
+    torch.cuda.synchronize()
+    launches = {kern.name: dict(kern.variant_launches) for kern in KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    bler = float(bler[0])
+    lo, hi = bler_band(name, ebno_db)
+    print(f"    {name} at {ebno_db} dB, batch {batch} x {cfg['mc_iter']} "
+          f"({batch * MIMO_STREAMS * cfg['mc_iter']} blocks): BLER {bler} "
+          f"(band [{lo:.4f}, {hi:.4f}]), {link.calls} decoder calls, "
+          f"launches {launches}, devices {sorted(link.devices)}, peak "
+          f"memory {peak:.2f} GiB, {time.perf_counter() - t0:.2f} s")
+    if not lo <= bler <= hi:
+        raise AssertionError(f"{name} BLER {bler} outside [{lo}, {hi}]")
+    if link.devices != {"cuda:0"}:
+        raise AssertionError(f"{name} tensors on {link.devices}")
+    if launches != {LIFTED_BP_KERNEL.name: {decoder_variant: link.calls},
+                    LAYERED_BP_KERNEL.name: {}}:
+        raise AssertionError(f"{name}: {launches} for {link.calls} decoder "
+                             "calls")
+    with torch.no_grad():
+        stages = marked_stage_ms(
+            lambda mark: link.stages(batch, ebno_db, mark), 5)
+        it_ms = median_ms(lambda: link(batch, ebno_db), 5)
+    total = sum(stages.values())
+    for stage, t in stages.items():
+        print(f"      {stage:32s} {t:9.3f} ms  {100 * t / total:5.1f} %")
+    print(f"      {'sum of stages':32s} {total:9.3f} ms")
+    bits = batch * MIMO_STREAMS * link.k
+    print(f"    {name}: {it_ms:.3f} ms per MC iteration (median of 5), "
+          f"{bits / it_ms / 1e3:.3f} Mbit/s of info bits")
+    return link, launches[LIFTED_BP_KERNEL.name][decoder_variant]
+
+
+def against_cpu(card, cpu, what, bound=1e-5):
+    """max |card - CPU| over the largest |CPU| value; raises above
+    ``bound`` (cuFFT and pocketfft round f32 differently)."""
+    torch.cuda.synchronize()
+    err = float((card.cpu() - cpu).abs().max() / cpu.abs().max())
+    print(f"    {what} on the card against the CPU, batch 8: max |diff| "
+          f"{err:.3e} of the largest (bound {bound:g})")
+    if not err <= bound:
+        raise AssertionError(f"{what}: card and CPU differ by {err}")
+
+
+def mimo_phases(card, results):
+    """Phases 17-19, run in a fresh process by ``main``; puts phase 17's
+    min-sum launches on ``results``."""
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"[17] BASELINE config 3 (examples/03_mimo_ofdm_cdl.py: CDL-B "
+          f"uplink, 4 x 4, 4 streams, 128-FFT, 16-QAM, LS lin, LMMSE, "
+          f"min-sum BP-12) through sim_ber on {card}")
+    _, minsum = run_mimo_link(dev, "ul_freq", "f32+minsum")
+
+    print(f"[18] the same widths downlink in the time domain (RZF, OFDM "
+          f"modulator, CDL taps over the CP-6 grid, demodulator; LS nn, "
+          f"LMMSE, boxplus-phi BP-20) through sim_ber on {card}")
+    link, _ = run_mimo_link(dev, "dl_time", "f32")
+    # its modulator and demodulator on one batch against the CPU
+    rg = link.rg
+    x_rg = link.rg_mapper(link.mapper(link.enc(
+        link.src([8, 1, MIMO_STREAMS, link.k]))))
+    x_time = link.mod(x_rg)
+    against_cpu(x_time, OFDMModulator(6, device="cpu")(x_rg.cpu()),
+                "OFDMModulator")
+    a, tau = link.cdl(8, rg.num_time_samples + link.l_tot - 1, rg.bandwidth)
+    y_time = link.channel(x_time, cir_to_time_channel(
+        rg.bandwidth, a, tau, link.l_min, link.l_max, normalize=True),
+        link.no(10.0))
+    against_cpu(link.demod(y_time),
+                OFDMDemodulator(128, link.l_min, 6, device="cpu")(
+                    y_time.cpu()), "OFDMDemodulator")
+
+    print(f"[19] detectors over CDL-A (4 streams, 8 BS antennas, QPSK, "
+          f"128-FFT, perfect CSI, K1 BP-20) through sim_ber on {card}")
+    calls = {}
+    for name in ("det_lmmse", "det_kbest", "det_ep", "det_mmsepic",
+                 "det_ml"):
+        link, _ = run_mimo_link(dev, name, "f32")
+        ebno_db, batch = MIMO_LINKS[name]["ebno_db"], MIMO_LINKS[name]["batch"]
+        # its decisions on one batch on the card and on the CPU
+        _, y, h, no = link.received(8, ebno_db)
+        hard = link.detect(link.det, y, h, no).cpu() > 0
+        hard_cpu = link.detect(link.detector("cpu"), y.cpu(), h.cpu(),
+                               no.cpu()) > 0
+        diff = int((hard != hard_cpu).sum())
+        print(f"    {name}: {diff} of {hard.numel()} bit decisions differ "
+              f"between the card and the CPU (bound "
+              f"{DET_CPU_DIFF_PER_MILLE} per 1000)")
+        if diff * 1000 > DET_CPU_DIFF_PER_MILLE * hard.numel():
+            raise AssertionError(f"{name}: {diff} decisions differ between "
+                                 "the card and the CPU")
+        _, y, h, no = link.received(batch, ebno_db)
+        with torch.no_grad():
+            det_ms = median_ms(lambda: link.detect(link.det, y, h, no), 5)
+        print(f"    {name}: detector {det_ms:.3f} ms per call (batch "
+              f"{batch}, median of 5)")
+        calls[name] = (lambda link=link, y=y, h=h, no=no:
+                       link.detect(link.det, y, h, no), det_ms)
+    # the profiler last: every launch after its window costs more
+    print("[19] launches and device time per detector call "
+          "(torch.profiler, batch 64)")
+    for name, (call, det_ms) in calls.items():
+        with torch.no_grad():
+            device, host, busy = launches_per_call(call)
+        print(f"    {name}: {device} kernels and copies on the device, "
+              f"{host} cudaLaunchKernel, {busy:.3f} ms of device time in "
+              f"a {det_ms:.3f} ms call ({100 * busy / det_ms:.1f} % busy)")
+    sys.stdout.flush()
+    results.put({"ldpc_lifted_bp_minsum": minsum})
+
+
+def run_in_process(target, card, timeout):
+    """Runs ``target(card, results)`` in a fresh spawned process and
+    returns what it put on the queue ``results`` (None if nothing);
+    raises unless it ends with 0 within ``timeout`` seconds."""
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    proc = ctx.Process(target=target, args=(card, results))
+    proc.start()
+    deadline = time.monotonic() + timeout
+    out = None
+    # drain the queue before joining the process that writes to it
+    while out is None and time.monotonic() < deadline:
+        try:
+            out = results.get(timeout=5)
+        except queue.Empty:
+            if not proc.is_alive():
+                break
+    proc.join(timeout=max(deadline - time.monotonic(), 1))
+    if proc.is_alive():
+        proc.terminate()
+        proc.join()
+        raise AssertionError(f"{target.__name__} did not end within "
+                             f"{timeout} s")
+    if proc.exitcode != 0:
+        raise AssertionError(f"{target.__name__} failed (exit "
+                             f"{proc.exitcode})")
+    return out
 
 
 def main():
@@ -1111,7 +1538,9 @@ def main():
             if kern is LAYERED_BP_KERNEL and local_memory_bytes(line):
                 raise AssertionError(f"K3 uses local memory: {line}")
     print(f"    FP32 (instructions, operations) on the executed path of "
-          f"{function_ops}; per boxplus edge-lane update {ops_per_update}")
+          f"{function_ops}; per boxplus edge-lane update {ops_per_update}; "
+          f"per min-sum edge-lane update {sass_ops.MINSUM_OPS} (counted "
+          f"from the min-sum function, sass_ops.MINSUM_OPS)")
 
     max_err = {}
     for phase, kern, layered in (("[3]", LIFTED_BP_KERNEL, False),
@@ -1178,13 +1607,29 @@ def main():
                         cn_update="boxplus", engine="lifted", device=dev)
     llr_bg1 = bg1.recover_llrs(
         noisy_llrs(bg1.encoder, FLAGSHIP["batch"], 2.5, gen)[1])
+    # the min-sum variant at the flagship's code and at config 3's
+    # (k=3072, n=6144: phase 17's, 2048 codewords and 12 iterations)
+    ms_flag = LDPC5GDecoder(flood.enc, cn_update="minsum", engine="lifted",
+                            device=dev)
+    cfg3 = LDPC5GDecoder(LDPC5GEncoder(3072, 6144, device=dev),
+                         cn_update="minsum", num_iter=12, device=dev)
+    llr_cfg3 = cfg3.recover_llrs(
+        noisy_llrs(cfg3.encoder, FLAGSHIP["batch"], 2.5, gen)[1])
     times, shapes, bounds = {}, {}, {}
+    # the first case of each variant fills its kernels-line entry: its
+    # main path's shape, the flagship's but for the min-sum variant,
+    # whose main path is config 3's (phase 17)
     cases = []
     for name, _, kern, _, _ in VARIANTS:
         it, schedule = ((10, "layered-10") if kern is LAYERED_BP_KERNEL
                         else (20, "BP-20"))
-        cases.append((name, flood.dec.lifted, llr_big, it,
-                      f"n=12288 x 2048, {schedule} boxplus"))
+        minsum = name.endswith("minsum")
+        if minsum:
+            cases.append((name, cfg3.lifted, llr_cfg3, 12,
+                          "n=6144 x 2048, BP-12 min-sum"))
+        cases.append((name, (ms_flag if minsum else flood.dec).lifted,
+                      llr_big, it, f"n=12288 x 2048, {schedule} "
+                      + ("min-sum" if minsum else "boxplus")))
     cases += [
         ("ldpc_lifted_bp", dec.lifted, llr_link, 20,
          "n=2048 x 2000, BP-20 boxplus"),
@@ -1203,8 +1648,10 @@ def main():
         max_err[name] = max(max_err[name], err)
         (k1, k2), (p1, p2) = in_turns(lambda: ker(llr, it),
                                       lambda: plain(llr, it), 10, 2)
-        form = "ratio" if name.endswith("ratio") else "log1p"
-        bound = lifted_bound(lift, llr.shape[0], it, ops_per_update[form])
+        per_update = ((sass_ops.MINSUM_OPS,) * 2 if name.endswith("minsum")
+                      else ops_per_update["ratio" if name.endswith("ratio")
+                                          else "log1p"])
+        bound = lifted_bound(lift, llr.shape[0], it, per_update)
         print(f"    {name}, {shape}: max|kernel-plain| {err:.3e}; "
               f"kernel {k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / "
               f"{p2:.3f} ms per call; bound {bound[0]:.3f} ms "
@@ -1212,7 +1659,7 @@ def main():
               f"FP32 issue {bound[2]:.3f} ms, "
               f"{100 * bound[2] / min(k1, k2):.1f} %")
         print(f"      {launch_line(name, lift, llr.shape[0])}")
-        if name not in times:  # the kernels line: flagship shape
+        if name not in times:  # the kernels line: main path's shape
             times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
             shapes[name] = shape
             bounds[name] = bound
@@ -1265,6 +1712,8 @@ def main():
             LAYERED_BP_KERNEL.name]["f32"]})
     print(f"    launches {main_launches}")
     for name, label, *_ in VARIANTS:
+        if label is None:  # no knob of the sweep: phase 17's main path
+            continue
         if label not in sweep or not main_launches[name]:
             raise AssertionError(f"the sweep did not launch {name}")
         print(f"    hard-decision flip rate of {label} against f32 on the "
@@ -1327,16 +1776,10 @@ def main():
     # 20.7 to 38.5-41.9 ms per call)
     sys.stdout.flush()
     torch.cuda.empty_cache()
-    proc = multiprocessing.get_context("spawn").Process(
-        target=fec_phases, args=(card,))
-    proc.start()
-    proc.join(timeout=600)
-    if proc.is_alive():
-        proc.terminate()
-        proc.join()
-        raise AssertionError("phases 15-16 did not end within 600 s")
-    if proc.exitcode != 0:
-        raise AssertionError(f"phases 15-16 failed (exit {proc.exitcode})")
+    run_in_process(fec_phases, card, 600)
+    # phases 17-19 likewise, in a fresh process: they report the
+    # launches of K1's min-sum variant on its main path (phase 17)
+    main_launches.update(run_in_process(mimo_phases, card, 600))
 
     print(json.dumps({"kernels": [{
         "name": name,

@@ -9,4 +9,4 @@ from .mapping import (pam_gray, qam, pam, Constellation, Mapper, Demapper,
                       PAM2QAM, BinarySource, SymbolSource, QAMSource,
                       PAMSource)
 from .channel import AWGN
-from . import channel, fec, mimo, ofdm
+from . import channel, fec, mimo, ofdm, signal

@@ -1,11 +1,15 @@
 """Channel models (counterpart of ``sionna_tpu.phy.channel``; the port
-has AWGN and the OFDM channel with the TR 38.901 TDL models)."""
+has AWGN, the OFDM and time-domain channels and the TR 38.901 TDL and
+CDL models)."""
 
 from .awgn import AWGN
 from .channel_model import ChannelModel
 from .apply_ofdm_channel import ApplyOFDMChannel
 from .generate_ofdm_channel import GenerateOFDMChannel
 from .ofdm_channel import OFDMChannel
+from .apply_time_channel import ApplyTimeChannel
+from .generate_time_channel import GenerateTimeChannel
+from .time_channel import TimeChannel
 from . import tr38901
 from .utils import (subcarrier_frequencies, time_frequency_vector,
                     time_lag_discrete_time_channel, cir_to_ofdm_channel,

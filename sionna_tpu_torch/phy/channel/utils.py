@@ -7,7 +7,6 @@ import torch
 
 from ..config import config, dtypes
 from ..constants import PI
-from ..utils.tensors import expand_to_rank
 
 __all__ = ["subcarrier_frequencies", "time_frequency_vector",
            "time_lag_discrete_time_channel", "cir_to_ofdm_channel",
@@ -28,11 +27,13 @@ def _cdtype(precision):
 
 def subcarrier_frequencies(num_subcarriers, subcarrier_spacing,
                            precision=None, device=None):
-    """Baseband subcarrier frequencies, DC-centered."""
+    """Baseband subcarrier frequencies, DC-centered, on ``device``
+    (default ``config.device``)."""
     rdtype = _rdtype(precision)
     start = -(num_subcarriers // 2)
     limit = num_subcarriers // 2 + (num_subcarriers % 2)
-    freqs = torch.arange(start, limit, dtype=rdtype, device=device)
+    freqs = torch.arange(start, limit, dtype=rdtype,
+                         device=config.device if device is None else device)
     return freqs * subcarrier_spacing
 
 
@@ -85,17 +86,16 @@ def cir_to_time_channel(bandwidth, a, tau, l_min, l_max, normalize=False):
 
     a: [b, rx, rxa, tx, txa, paths, T]; tau: [b, rx, tx, paths] or
     [b, rx, rxa, tx, txa, paths]. Returns
-    [b, rx, rxa, tx, txa, T, l_max - l_min + 1].
+    [b, rx, rxa, tx, txa, T, l_max - l_min + 1]. The sum over paths is a
+    batched matrix product [T, paths] x [paths, taps].
     """
     a = torch.as_tensor(a)
     tau = torch.as_tensor(tau)
     if tau.dim() == 4:
         tau = tau[:, :, None, :, None, :]
-    tau = tau[..., None, None]  # [..., paths, 1, 1]
     l = torch.arange(l_min, l_max + 1, dtype=tau.dtype, device=tau.device)
-    l = expand_to_rank(l, tau.dim(), axis=0)
-    sinc = torch.sinc(l - bandwidth * tau).to(a.dtype)
-    hm = torch.sum(a[..., None] * sinc, dim=-3)  # sum over paths
+    sinc = torch.sinc(l - bandwidth * tau[..., None]).to(a.dtype)
+    hm = torch.matmul(a.transpose(-1, -2), sinc)  # [..., T, taps]
 
     if normalize:
         c = torch.mean(torch.sum(torch.abs(hm) ** 2, dim=-1),

@@ -1150,11 +1150,12 @@ def _check_llrs(kern, lifted, llr_int, num_iter, storage_dtype,
     _check_knobs(storage_dtype, atanh_form)
 
 
-def _variant(storage_dtype, atanh_form):
+def _variant(lifted, storage_dtype, atanh_form):
     """The launch-count variant: "f32" or "bf16", "+ratio" for the ratio
-    form."""
+    form, "+minsum" for the (offset) min-sum check node."""
     return (("bf16" if storage_dtype is not None else "f32")
-            + ("+ratio" if atanh_form == "ratio" else ""))
+            + ("+ratio" if atanh_form == "ratio" else "")
+            + ("+minsum" if lifted._cn_mode == "minsum" else ""))
 
 
 class LiftedBPLayout(NamedTuple):
@@ -1483,7 +1484,7 @@ def lifted_bp_cuda(lifted, llr_int, num_iter, storage_dtype=None,
             int(storage_dtype is not None), int(atanh_form == "ratio"),
             layout.threads, layout.cluster, stream)
     kern.check(err)
-    kern.count(_variant(storage_dtype, atanh_form))
+    kern.count(_variant(lifted, storage_dtype, atanh_form))
     return out[:, :lifted._num_vns]
 
 
@@ -1520,5 +1521,5 @@ def layered_bp_cuda(lifted, llr_int, num_iter, storage_dtype=None):
             int(storage_dtype is not None), layout.threads, layout.cluster,
             stream)
     kern.check(err)
-    kern.count(_variant(storage_dtype, "log1p"))
+    kern.count(_variant(lifted, storage_dtype, "log1p"))
     return out[:, :lifted._num_vns]

@@ -25,9 +25,18 @@ cluster powers) and, for LoS models, ``".los_power"``; on a
 ``ip_by_tonode``, ``op_by_tonode``, ``op_by_fromnode``,
 ``op_bits_by_fromnode``); on a ``TurboEncoder``
 ``"internal_interleaver.perm"`` (of the last frame size) and
-``"convencoder.trellis.<table>"``. Objects that are not modules (a
-``PilotPattern``, a ``TDL``, a ``Trellis``) take the same names without
-the prefix.
+``"convencoder.trellis.<table>"``; on a ``CDL`` ``"delays"``
+(normalised), ``"powers"``, ``"aoa"``/``"aod"``/``"zoa"``/``"zod"`` (the
+ray angles at this link's ends), ``"xpr"``, ``"k_factor"``, for LoS
+models ``"los_aoa"``/``"los_aod"``/``"los_zoa"``/``"los_zod"``, and
+``"tx_array.ant_pos"``/``"rx_array.ant_pos"`` (with
+``".ant_ind_pol1"``/``".ant_ind_pol2"``), under ``"gen.channel_model."``
+in an ``OFDMChannel``; on an ``AntennaArray`` (or ``PanelArray``)
+``"ant_pos"``, ``"ant_ind_pol1"`` and ``"ant_ind_pol2"``. Objects that
+are not modules (a ``PilotPattern``, a ``TDL``, a ``CDL``, an antenna
+array, a ``Trellis``) take the same names without the prefix. The
+CDL, the antenna arrays, the precoders and the MIMO detectors have no
+trainable parameters.
 """
 
 import numpy as np

@@ -52,6 +52,20 @@ PROBES = {
 # subtraction of the edge's own message and the clamp (2). The same count
 # in both forms.
 OTHER_OPS = 19
+# FP32 operations (= instructions) that one edge lane and iteration of
+# min-sum needs, counted from the function, not from ldpc_lifted_bp.cu's
+# code for it (the SASS probe has no function to isolate: they are
+# inline comparisons and selects), none of them an FMA. CN: |m| (1), the
+# running minimum (1), the second minimum as min(min2, max(min1, |m|))
+# (2), the extrinsic's compare and select (2), the clamp at the clip (1)
+# and one application of the extrinsic sign (1); VN: the add into the
+# marginal, the subtraction of the edge's own message and the clamp (4).
+# Left out as the implementation's, not the function's: the padding
+# lanes' select and 0/1 mask multiply, the sign's compare and select
+# (sign-bit work), the separate multiply by sign_tot, and the count of
+# minima. The offset's subtraction and clamp are skipped at offset 0
+# (min-sum).
+MINSUM_OPS = 12
 _INSN = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)"
                    r"\s*([^;]*);")
 _FP = re.compile(r"^((?!FLO)F[A-Z0-9]+|MUFU)(\.|$)")
