@@ -109,6 +109,41 @@ written for them: the JAX package's CDL, precoders and detectors are
 XLA code. Phase 17 is the main path of K1's min-sum variant, whose
 launches the kernels line reports.
 
+20. runs BASELINE config 5 as ``bench.bench_sys`` does
+    (``sionna_tpu_torch.tools.sys_slots.MulticellSlots``: a hexagonal
+    grid of 21 UMi sectors with 4 UTs each, the distance-proxy SINR,
+    ``PHYAbstraction``, OLLA's ``step`` at a BLER target of 0.1, 1000
+    REs per UT): 50 slots per call, one warm-up call, 3 timed calls with
+    one host read each, every slot under ``torch.cuda``'s sync debug
+    mode "error" (a slot that reads the card back fails); prints
+    ``sys_multicell_slots_per_s``; the NACK share inside its band from
+    ``tools/sys_ref.py --part slots``, the drop equal to the JAX
+    package's (its SHA-256);
+21. runs the same grid at 10 UTs per sector (210 UTs) with the TR 38.901
+    UMi channel (omni arrays, downlink) over 14 symbols x 612
+    subcarriers at 30 kHz for 20 slots
+    (``sionna_tpu_torch.tools.sys_slots.DownlinkSlots``: CIR -> OFDM,
+    pathloss, PF scheduling per sector, fair downlink power control,
+    spreading, CBF effective channel and LMMSE post-equalization SINR,
+    OLLA, EESM, PHY abstraction): ms per stage (CUDA events), slots/s,
+    peak memory; the mean and standard deviation of the 4,410 links'
+    gain [dB], of the drop's draw and of each of 16 repetitions of new
+    LSPs and one channel, inside the band of one JAX repetition, and
+    their means over the repetitions inside the band of the difference
+    of means (``tools/sys_ref.py --part gain``);
+22. makes BLER table points on the card with
+    ``PHYAbstraction.new_bler_table`` (PUSCH, MCS table 1, MCS 5, 14 and
+    20, code blocks of 1000 bits, three SNRs each) through
+    ``CodedAWGNChannelNR``, whose decoder is K1: one K1 launch per
+    decoder call, each BLER inside its band from ``tools/sys_ref.py
+    --part bler`` and printed beside the shipped table's value; then K1
+    at each MCS's code (x 2000, BP-20) held identical to its plain
+    decode, both timed in turns, and its bound.
+
+Phases 20-22 run in a process of their own, every tensor on ``cuda:0``.
+No kernel is written for them: the JAX package's SYS blocks and
+system-level channel are XLA code; phase 22's decoder runs K1.
+
 Phases 15 and 16 run in a process of their own; each link is held to
 its BLER band from a JAX run of the same link
 (``tools/fec_links_bler.py``), with every tensor on the card and no
@@ -124,6 +159,7 @@ and last ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
 Run from the repository root: ``python3 chip_smoke.py``.
 """
 
+import hashlib
 import json
 import multiprocessing
 import os
@@ -137,7 +173,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from sionna_tpu_torch.phy import AWGN, BinarySource, Demapper, Mapper
+from sionna_tpu_torch.phy import (AWGN, BinarySource, Demapper, Mapper,
+                                  config)
 from sionna_tpu_torch.phy.channel import (ApplyTimeChannel, OFDMChannel,
                                           cir_to_ofdm_channel,
                                           cir_to_time_channel,
@@ -168,8 +205,11 @@ from sionna_tpu_torch.phy.ofdm import (EPDetector, KBestDetector,
                                        ResourceGrid, ResourceGridMapper,
                                        RZFPrecoder, ZFEqualizer,
                                        tdl_freq_cov_mat, tdl_time_cov_mat)
+from sionna_tpu_torch.phy.nr.utils import CodedAWGNChannelNR
 from sionna_tpu_torch.phy.utils import Profiler, ebnodb2no, sim_ber
+from sionna_tpu_torch.sys import PHYAbstraction
 from sionna_tpu_torch.tools import ldpc_tune, sass_ops
+from sionna_tpu_torch.tools.sys_slots import DownlinkSlots, MulticellSlots
 
 LINK = dict(k=1024, n=2048, nbps=4, batch=2000, num_iter=20)
 FLAGSHIP = dict(batch=2048, nbps=4, rate=0.5, mc_iter=8)
@@ -287,6 +327,46 @@ MIMO_JAX = {("ul_freq", 8.0): (16565, 65536),
 # on the same inputs (Cholesky, QR and exp/log round differently there:
 # only LLRs within rounding of 0 flip), per 1000
 DET_CPU_DIFF_PER_MILLE = 1
+# BASELINE config 5 (phases 20-22), with the seeds and widths of
+# tools/sys_ref.py, whose JAX runs on the CPU give the references below
+SYS_SLOTS = dict(seed=0, slots_per_call=50, calls=3)
+SYS_DOWNLINK = dict(seed=1, slots=20)
+SYS_BLER = dict(seed=2, cbs=1000, batch=2000, mc_iter=10)
+SYS_BLER_POINTS = {5: (-1.0, -0.75, -0.5), 14: (6.5, 6.75, 7.0),
+                   20: (12.0, 12.5, 13.0)}
+# tools/sys_ref.py --part slots --reps 20: NACKs and HARQ outcomes over
+# bench_sys's three timed calls, 20 repetitions pooled; the drop's SHA-256
+SYS_SLOTS_JAX = (22023, 252000)
+SYS_SLOTS_TOPOLOGY = ("c649dbbcb6a348c17050c505348df3034ceb46e87"
+                      "32b10b85361def4eefea11f")
+# tools/sys_ref.py --part gain --reps 16: the links' gain [dB], mean and
+# standard deviation over the 4,410 links, each as (mean over the
+# repetitions, their sample standard deviation); the drop's SHA-256
+SYS_GAIN_JAX = {"mean": (-129.2312421798706, 0.15979618041462054),
+                "std": (15.425802409648895, 0.11441043637133586)}
+SYS_GAIN_REPS = 16
+# phase 21 draws the same statistic on the port this many times, each
+# repetition with its own LSPs and channel from its own generator seed
+SYS_GAIN_PORT_REPS = 16
+SYS_GAIN_TOPOLOGY = ("73e2c6affbd0eb3c7720987955d6cdb0418543c764f31"
+                     "efee780fff3c125dd94")
+# tools/sys_ref.py --part bler --batch 2000 --iters 10 --reps 2: (block
+# errors, blocks) per (MCS, SNR dB)
+SYS_BLER_JAX = {(5, -1.0): (32263, 40000), (5, -0.75): (17923, 40000),
+                (5, -0.5): (5318, 40000), (14, 6.5): (31782, 40000),
+                (14, 6.75): (19616, 40000), (14, 7.0): (8056, 40000),
+                (20, 12.0): (32196, 40000), (20, 12.5): (10890, 40000),
+                (20, 13.0): (999, 40000)}
+
+
+def rate_band(errors, blocks, n_port):
+    """The JAX estimate ``errors / blocks`` +- 5 standard errors of the
+    difference between it and an estimate over ``n_port`` trials, at a
+    rate at least one trial away from 0 and 1."""
+    p = errors / blocks
+    q = min(max(p, 1 / blocks), 1 - 1 / blocks)
+    half = 5 * (q * (1 - q) * (1 / blocks + 1 / n_port)) ** 0.5
+    return max(p - half, 0.0), min(p + half, 1.0)
 
 
 def bler_band(schedule, ebno_db):
@@ -309,10 +389,7 @@ def bler_band(schedule, ebno_db):
     else:
         errors, blocks = FLAGSHIP_JAX[(schedule, ebno_db)]
         n_port = FLAGSHIP["mc_iter"] * FLAGSHIP["batch"]
-    p = errors / blocks
-    q = min(max(p, 1 / blocks), 1 - 1 / blocks)
-    half = 5 * (q * (1 - q) * (1 / blocks + 1 / n_port)) ** 0.5
-    return max(p - half, 0.0), min(p + half, 1.0)
+    return rate_band(errors, blocks, n_port)
 
 
 def card_line():
@@ -1476,13 +1553,305 @@ def mimo_phases(card, results):
     results.put({"ldpc_lifted_bp_minsum": minsum})
 
 
-def run_in_process(target, card, timeout):
-    """Runs ``target(card, results)`` in a fresh spawned process and
+def topology_sha256(topology):
+    """SHA-256 over a drop's arrays (``los``, None, left out), as
+    ``tools/sys_ref.py`` takes it."""
+    h = hashlib.sha256()
+    for x in topology:
+        if x is not None:
+            h.update(np.ascontiguousarray(x).tobytes())
+    return h.hexdigest()
+
+
+def on_card(what, tensors, dev):
+    """Raises unless every tensor lies on ``dev``."""
+    devices = {t.device for t in tensors}
+    if devices != {dev}:
+        raise AssertionError(f"{what}: tensors on {sorted(map(str, devices))}")
+
+
+def check_drop(what, topology, want):
+    got = topology_sha256(topology)
+    print(f"    {what} drop SHA-256 {got[:16]}... (the JAX package's "
+          f"{want[:16]}...)")
+    if got != want:
+        raise AssertionError(f"{what}: the drop differs from the JAX "
+                             "package's of the same seed")
+
+
+def run_multicell_slots(dev, card):
+    """Phase 20: bench_sys's loop. Returns the loop and a slot's
+    state for the profile at the end of the phases."""
+    cfg = SYS_SLOTS
+    config.seed = cfg["seed"]
+    sim = MulticellSlots(device=dev)
+    check_drop("config 5", sim.topology, SYS_SLOTS_TOPOLOGY)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    n = cfg["slots_per_call"]
+    state0 = sim.olla.init_state()
+    _, bits, _ = sim.run(state0, n, gen)  # warm-up, its state dropped
+    int(bits)
+    state, nacks, total_bits = state0, 0, 0
+    t0 = time.perf_counter()
+    for _ in range(cfg["calls"]):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, bits, n_nack = sim.run(state, n, gen)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        total_bits += int(bits)
+        nacks += int(n_nack)
+    dt = time.perf_counter() - t0
+    on_card("[20]", [sim.n_re, sim.sinr_base, state[0], state[1], bits,
+                     sim.phy_abs.bler_table_interp], dev)
+    slots = n * cfg["calls"]
+    outcomes = slots * sim.num_ut
+    lo, hi = rate_band(*SYS_SLOTS_JAX, outcomes)
+    share = nacks / outcomes
+    print(f"    {slots} timed slots in {dt:.4f} s on {card}: "
+          f"sys_multicell_slots_per_s {slots / dt:.3f}, "
+          f"{1e3 * dt / slots:.4f} ms per slot, {total_bits} bits decoded, "
+          f"no host sync inside a slot")
+    print(f"    NACK share {share:.5f} ({nacks} of {outcomes}); band "
+          f"[{lo:.5f}, {hi:.5f}] (JAX {SYS_SLOTS_JAX[0]} of "
+          f"{SYS_SLOTS_JAX[1]})")
+    if not lo <= share <= hi or total_bits <= 0:
+        raise AssertionError(f"[20] NACK share {share} outside "
+                             f"[{lo}, {hi}] or no bits")
+    print(json.dumps({"metric": "sys_multicell_slots_per_s",
+                      "value": slots / dt, "unit": "slots/s",
+                      "card": card}))
+    return sim, state, gen
+
+
+def gain_band(stat, port_spread=None, port_reps=1):
+    """The JAX repetitions' mean +- 5 standard deviations of the
+    difference between it and one more repetition's value or, given the
+    spread of ``port_reps`` repetitions on the port, the mean of those."""
+    mean, spread = SYS_GAIN_JAX[stat]
+    if port_spread is None:
+        port_spread = spread
+    half = 5 * (spread ** 2 / SYS_GAIN_REPS
+                + port_spread ** 2 / port_reps) ** 0.5
+    return mean - half, mean + half
+
+
+def run_downlink_slots(dev, card):
+    """Phase 21: the UMi downlink chain at 210 UTs."""
+    cfg = SYS_DOWNLINK
+    config.seed = cfg["seed"]
+    gen = torch.Generator(device=dev).manual_seed(21)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim = DownlinkSlots(generator=gen, device=dev)
+    print(f"    built in {time.perf_counter() - t0:.2f} s "
+          f"({sim.num_bs} sectors, {sim.num_ut} UTs, {sim.num_sym} x "
+          f"{sim.num_sc} REs)")
+    check_drop("UMi", sim.topology, SYS_GAIN_TOPOLOGY)
+
+    # the links' gain over the drop's frozen LSPs and one channel draw
+    check_link_gain(sim.link_gain_db(gen), "one draw", dev)
+
+    state = sim.init_state()
+    state, out = sim.slot(state, generator=gen)  # warm-up
+    torch.cuda.synchronize()
+    stage_ms = dict.fromkeys(DownlinkSlots.STAGES, 0.0)
+    events = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((name, ev))
+
+    t0 = time.perf_counter()
+    bits = harq = 0
+    for _ in range(cfg["slots"]):
+        events.clear()
+        mark("start")
+        state, out = sim.slot(state, generator=gen, mark=mark)
+        torch.cuda.synchronize()
+        for (_, e0), (name, e1) in zip(events, events[1:]):
+            stage_ms[name] += e0.elapsed_time(e1)
+        bits += int(out["bits"].sum())
+        harq += int((out["harq"] >= 0).sum())
+    dt = time.perf_counter() - t0
+    on_card("[21]", list(out.values()) + list(state[0]) + list(state[1:]),
+            dev)
+    sinr = out["sinr"]
+    if not (torch.isfinite(sinr).all() and (sinr >= 0).all()
+            and sinr.shape == (1, sim.num_sym, sim.num_sc, sim.num_ut, 1)
+            and bool(((out["harq"] >= -1) & (out["harq"] <= 1)).all())):
+        raise AssertionError("[21] SINR or HARQ out of range")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    slots = cfg["slots"]
+    print(f"    {slots} slots in {dt:.4f} s on {card}: "
+          f"{slots / dt:.3f} slots/s, {1e3 * dt / slots:.3f} ms per slot "
+          f"(host clock, a sync per slot), {bits} bits decoded, {harq} "
+          f"HARQ outcomes, peak {peak:.2f} GiB")
+    total = sum(stage_ms.values())
+    for name, ms in stage_ms.items():
+        print(f"    {name:14s} {ms / slots:9.3f} ms per slot "
+              f"({100 * ms / total:5.1f} %)")
+
+    # the same statistic over repetitions of the port's own draws, each
+    # of new LSPs and one channel, as tools/sys_ref.py's repetitions
+    reps = {"mean": [], "std": []}
+    for r in range(SYS_GAIN_PORT_REPS):
+        stats = check_link_gain(sim.link_gain_db(
+            torch.Generator(device=dev).manual_seed(2100 + r),
+            redraw_lsp=True), f"repetition {r}", dev)
+        for stat, value in stats.items():
+            reps[stat].append(value)
+    for stat, values in reps.items():
+        mean, spread = float(np.mean(values)), float(np.std(values, ddof=1))
+        lo, hi = gain_band(stat, spread, len(values))
+        jax_mean, jax_spread = SYS_GAIN_JAX[stat]
+        print(f"    link gain {stat} over {len(values)} repetitions of the "
+              f"port's draws: mean {mean:.4f} dB, spread {spread:.4f} "
+              f"(JAX's {SYS_GAIN_REPS}: {jax_mean:.4f}, {jax_spread:.4f}); "
+              f"band [{lo:.4f}, {hi:.4f}]")
+        if not lo <= mean <= hi:
+            raise AssertionError(f"[21] link gain {stat} over the port's "
+                                 f"repetitions {mean} outside [{lo}, {hi}]")
+
+
+def check_link_gain(gain_db, what, dev):
+    """Phase 21: the mean and standard deviation [dB] over the links of
+    one draw of ``DownlinkSlots.link_gain_db``, each in the band of one
+    JAX repetition. Returns them."""
+    on_card(f"[21] link gain, {what}", [gain_db], dev)
+    stats = {"mean": float(gain_db.mean()),
+             "std": float(gain_db.std(unbiased=False))}
+    bands = {stat: gain_band(stat) for stat in stats}
+    print(f"    link gain over {gain_db.numel()} links, {what}: " + "; ".join(
+        f"{stat} {value:.4f} dB in [{bands[stat][0]:.4f}, "
+        f"{bands[stat][1]:.4f}]" for stat, value in stats.items()))
+    for stat, value in stats.items():
+        if not bands[stat][0] <= value <= bands[stat][1]:
+            raise AssertionError(f"[21] link gain {stat}, {what}, {value} "
+                                 f"outside {bands[stat]}")
+    return stats
+
+
+def run_bler_points(dev, card, per_update):
+    """Phase 22: BLER table points through CodedAWGNChannelNR (K1); then
+    K1 at each MCS's code held against its plain version and timed with
+    it, beside its bound (``per_update``: the FP32 instructions and
+    operations of one boxplus edge-lane update)."""
+    cfg = SYS_BLER
+    config.seed = cfg["seed"]
+    shipped = PHYAbstraction(device=dev)
+    phy_abs = PHYAbstraction(device=dev)
+    channel = CodedAWGNChannelNR(device=dev)
+    seen = {"calls": 0, "devices": set()}
+
+    def count(module, inputs, outputs):
+        seen["calls"] += 1
+        seen["devices"].update(t.device for t in outputs)
+
+    channel.register_forward_hook(count)
+    LIFTED_BP_KERNEL.library()  # built (or loaded) before the clock starts
+    decoders = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    for mcs, snrs in SYS_BLER_POINTS.items():
+        table = phy_abs.new_bler_table(
+            list(snrs), [cfg["cbs"]],
+            {"category": {0: {"index": {1: {"MCS": [mcs]}}}}},
+            channel=channel, batch_size=cfg["batch"],
+            max_mc_iter=cfg["mc_iter"], early_stop=False, verbose=False)
+        decoders[mcs] = channel.decoder
+        bler = table["category"][0]["index"][1]["MCS"][mcs]["CBS"][
+            cfg["cbs"]]["BLER"]
+        ref = shipped.get_bler(
+            mcs, 1, 0, cfg["cbs"],
+            torch.pow(10., torch.tensor(snrs, device=dev) / 10)).tolist()
+        n_port = cfg["batch"] * cfg["mc_iter"]
+        for snr, b, r in zip(snrs, bler, ref):
+            lo, hi = rate_band(*SYS_BLER_JAX[(mcs, snr)], n_port)
+            print(f"    MCS {mcs:2d} at {snr:6.2f} dB: BLER {b:.4f} "
+                  f"({n_port} blocks), band [{lo:.4f}, {hi:.4f}], shipped "
+                  f"table {r:.4f}")
+            if not lo <= b <= hi:
+                raise AssertionError(f"[22] MCS {mcs} at {snr} dB: BLER {b} "
+                                     f"outside [{lo}, {hi}]")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    k1 = LIFTED_BP_KERNEL.variant_launches.get("f32", 0)
+    print(f"    K1 (ldpc_lifted_bp, f32) launches {k1} in {seen['calls']} "
+          f"decoder calls, {LIFTED_BP_KERNEL.launches} lifted launches in "
+          f"all; table-making {1e3 * dt / seen['calls']:.3f} ms per decoder "
+          f"call (host clock over the three new_bler_table calls, their "
+          f"interpolation, the shipped table's reads and the prints "
+          f"included) on {card}; devices "
+          f"{sorted(map(str, seen['devices']))}")
+    if k1 != seen["calls"] or LIFTED_BP_KERNEL.launches != k1:
+        raise AssertionError("[22] K1 launches differ from decoder calls")
+    on_card("[22]", [phy_abs.bler_table_interp,
+                     *channel.decoder.buffers()], dev)
+    if seen["devices"] != {dev}:
+        raise AssertionError(f"[22] tensors on {seen['devices']}")
+
+    # K1 alone at each MCS's code, after the counts were read: the
+    # decoder's own input (rate recovery of BPSK LLRs), held identical to
+    # the plain decode, then the two timed in turns
+    gen = torch.Generator(device=dev).manual_seed(22)
+    batch = cfg["batch"]
+    for mcs, dec in decoders.items():
+        it = dec.num_iter
+        llr = dec.recover_llrs(noisy_llrs(dec.encoder, batch, 3.0, gen)[1])
+        ker, plain = variant_calls("ldpc_lifted_bp", dec.lifted)
+        shape = (f"MCS {mcs}'s code (k={dec.encoder.k}, n={dec.encoder.n}, "
+                 f"Z={dec.lifted._z}) x {batch}, BP-{it} boxplus")
+        err = assert_identical(ker(llr, it), plain(llr, it), f"[22] {shape}")
+        (k_a, k_b), (p_a, p_b) = in_turns(lambda: ker(llr, it),
+                                          lambda: plain(llr, it), 10, 2)
+        bound = lifted_bound(dec.lifted, batch, it, per_update)
+        print(f"    ldpc_lifted_bp, {shape}: max|kernel-plain| {err:.3e}; "
+              f"kernel {k_a:.3f} / {k_b:.3f} ms, plain {p_a:.3f} / "
+              f"{p_b:.3f} ms per call on {card}; bound {bound[0]:.3f} ms "
+              f"({bound[1]}), {100 * bound[0] / min(k_a, k_b):.1f} % of it")
+
+
+def sys_phases(card, results, per_update):
+    """Phases 20-22, run in a fresh process by ``main``; ``per_update``
+    as ``run_bler_points`` takes it."""
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"[20] BASELINE config 5 as bench_sys runs it (21 UMi sectors x 4 "
+          f"UTs, distance-proxy SINR, OLLA, PHY abstraction) on {card}")
+    sim, state, gen = run_multicell_slots(dev, card)
+    print(f"[21] config 5 with the TR 38.901 UMi channel (21 sectors x 10 "
+          f"UTs, 14 x 612 REs at 30 kHz, downlink) on {card}")
+    run_downlink_slots(dev, card)
+    print(f"[22] BLER table points through CodedAWGNChannelNR (K1) on "
+          f"{card}")
+    run_bler_points(dev, card, per_update)
+    # the profiler last: every launch after its window costs more
+    harq = torch.full((sim.num_ut,), -1, dtype=torch.int32, device=dev)
+
+    def one_slot():
+        fading = torch.empty(sim.num_ut, device=dev).exponential_(
+            generator=gen)
+        sim.slot(state, harq, fading, generator=gen)
+
+    slot_ms = median_ms(one_slot, 20)
+    device, host, busy = launches_per_call(one_slot)
+    print(f"[20] one slot of bench_sys's loop: {device} kernels and copies "
+          f"on the device, {host} cudaLaunchKernel, {busy:.3f} ms of "
+          f"device time in a {slot_ms:.3f} ms slot "
+          f"({100 * busy / slot_ms:.1f} % busy; torch.profiler)")
+    sys.stdout.flush()
+    results.put({})
+
+
+def run_in_process(target, card, timeout, *args):
+    """Runs ``target(card, results, *args)`` in a fresh spawned process and
     returns what it put on the queue ``results`` (None if nothing);
     raises unless it ends with 0 within ``timeout`` seconds."""
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
-    proc = ctx.Process(target=target, args=(card, results))
+    proc = ctx.Process(target=target, args=(card, results, *args))
     proc.start()
     deadline = time.monotonic() + timeout
     out = None
@@ -1506,6 +1875,7 @@ def run_in_process(target, card, timeout):
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; none is available")
     dev = torch.device("cuda", 0)
@@ -1776,10 +2146,19 @@ def main():
     # 20.7 to 38.5-41.9 ms per call)
     sys.stdout.flush()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     run_in_process(fec_phases, card, 600)
+    print(f"    phases 15-16 took {time.perf_counter() - t0:.1f} s")
     # phases 17-19 likewise, in a fresh process: they report the
     # launches of K1's min-sum variant on its main path (phase 17)
+    t0 = time.perf_counter()
     main_launches.update(run_in_process(mimo_phases, card, 600))
+    print(f"    phases 17-19 took {time.perf_counter() - t0:.1f} s")
+    # phases 20-22 (BASELINE config 5), likewise
+    t0 = time.perf_counter()
+    run_in_process(sys_phases, card, 600, ops_per_update["log1p"])
+    print(f"    phases 20-22 took {time.perf_counter() - t0:.1f} s; the "
+          f"script {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": name,

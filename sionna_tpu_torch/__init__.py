@@ -7,4 +7,4 @@ kernels live in ``csrc/`` and are built with nvcc on first use (see
 ``_build.py``).
 """
 
-from . import phy
+from . import phy, sys

@@ -1,6 +1,6 @@
 """Channel models (counterpart of ``sionna_tpu.phy.channel``; the port
-has AWGN, the OFDM and time-domain channels and the TR 38.901 TDL and
-CDL models)."""
+has AWGN, the OFDM and time-domain channels, the TR 38.901 TDL, CDL and
+system-level models and the 3GPP topology helpers)."""
 
 from .awgn import AWGN
 from .channel_model import ChannelModel
@@ -15,4 +15,8 @@ from .utils import (subcarrier_frequencies, time_frequency_vector,
                     time_lag_discrete_time_channel, cir_to_ofdm_channel,
                     cir_to_time_channel, time_to_ofdm_channel, deg_2_rad,
                     rad_2_deg, wrap_angle_0_360, exp_corr_mat,
-                    one_ring_corr_mat)
+                    one_ring_corr_mat, drop_uts_in_sector,
+                    set_3gpp_scenario_parameters, relocate_uts,
+                    random_ut_properties, generate_uts_topology,
+                    gen_single_sector_topology,
+                    gen_single_sector_topology_interferers)

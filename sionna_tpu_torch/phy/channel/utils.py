@@ -1,23 +1,22 @@
 """Channel utility functions (counterpart of
-``sionna_tpu/phy/channel/utils.py``; the 3GPP system-level topology
-helpers are not ported yet: ROADMAP.md, queue 1 item 18)."""
+``sionna_tpu/phy/channel/utils.py``)."""
 
 import numpy as np
 import torch
 
 from ..config import config, dtypes
 from ..constants import PI
+from ..utils.misc import _rdtype
 
 __all__ = ["subcarrier_frequencies", "time_frequency_vector",
            "time_lag_discrete_time_channel", "cir_to_ofdm_channel",
            "cir_to_time_channel", "time_to_ofdm_channel", "deg_2_rad",
            "rad_2_deg", "wrap_angle_0_360", "exp_corr_mat",
-           "one_ring_corr_mat"]
-
-
-def _rdtype(precision):
-    return config.rdtype if precision is None \
-        else dtypes[precision]["torch"]["rdtype"]
+           "one_ring_corr_mat", "drop_uts_in_sector",
+           "set_3gpp_scenario_parameters", "relocate_uts",
+           "random_ut_properties", "generate_uts_topology",
+           "gen_single_sector_topology",
+           "gen_single_sector_topology_interferers"]
 
 
 def _cdtype(precision):
@@ -183,3 +182,233 @@ def one_ring_corr_mat(phi_deg, num_ant, d_h=0.5, sigma_phi_deg=15,
         arg)
     r = torch.exp(exp_arg).to(cdtype)
     return r[0] if scalar else r
+
+
+# ----------------------------------------------------------------------
+# 3GPP system-level topology helpers. A drop is host bookkeeping made
+# once: NumPy drawing from ``config.np_rng`` with the JAX package's calls
+# in its order, so that one seed gives both packages the same topology.
+# They return NumPy arrays for ``set_topology``.
+# ----------------------------------------------------------------------
+
+def _np_rdtype(precision):
+    return np.float64 if (precision or config.precision) == "double" \
+        else np.float32
+
+
+def drop_uts_in_sector(batch_size, num_ut, min_bs_ut_dist, isd,
+                       bs_height=0., ut_height=0., precision=None):
+    """Uniformly samples UT locations within a 120-deg cell sector
+    centered on a BS at the origin.
+
+    Returns [batch_size, num_ut, 2] X-Y locations."""
+    rdtype = _np_rdtype(precision)
+    rng = config.np_rng
+    d_min = max(float(min_bs_ut_dist), abs(float(bs_height)
+                                           - float(ut_height)))
+    r = 0.5 * float(isd)
+    r_min2 = d_min ** 2 - (float(bs_height) - float(ut_height)) ** 2
+
+    alpha_half = rng.uniform(-PI / 6., PI / 6., (batch_size, num_ut))
+    r_max = r / np.cos(alpha_half)
+    # Uniform area density: sample squared distance uniformly
+    distance = np.sqrt(rng.uniform(size=(batch_size, num_ut))
+                       * (r_max ** 2 - r_min2) + r_min2)
+    side = rng.integers(0, 2, (batch_size, num_ut)) * 2. + 1.
+    alpha = alpha_half + side * PI / 6.
+    return np.stack([distance * np.cos(alpha),
+                     distance * np.sin(alpha)],
+                    axis=-1).astype(rdtype)
+
+
+def set_3gpp_scenario_parameters(scenario, min_bs_ut_dist=None,
+                                 isd=None, bs_height=None,
+                                 min_ut_height=None, max_ut_height=None,
+                                 indoor_probability=None,
+                                 min_ut_velocity=None,
+                                 max_ut_velocity=None, precision=None):
+    """Default drop parameters for the 3GPP system-level scenarios."""
+    defaults = {
+        "umi": (10., 200., 10., 1.5, 1.5, 0.8, 0.0, 0.0),
+        "umi-calibration": (0., 200., 10., 1.5, 1.5, 0.8,
+                            3. / 3.6, 3. / 3.6),
+        "uma": (35., 500., 25., 1.5, 1.5, 0.8, 0.0, 0.0),
+        "uma-calibration": (0., 500., 25., 1.5, 1.5, 0.8,
+                            3. / 3.6, 3. / 3.6),
+        "rma": (35., 5000., 35., 1.5, 1.5, 0.5, 0.0, 0.0),
+    }
+    if scenario not in defaults:
+        raise ValueError(
+            "`scenario` must be one of 'umi', 'uma', 'rma', "
+            "'umi-calibration', 'uma-calibration'")
+    d = defaults[scenario]
+    vals = [min_bs_ut_dist, isd, bs_height, min_ut_height,
+            max_ut_height, indoor_probability, min_ut_velocity,
+            max_ut_velocity]
+    return tuple(float(d[i]) if v is None else float(v)
+                 for i, v in enumerate(vals))
+
+
+def relocate_uts(ut_loc, sector_id, cell_loc):
+    """Rotates UTs (assumed dropped in sector 0 of the origin cell)
+    into ``sector_id`` and translates them to ``cell_loc``."""
+    ut_loc = np.asarray(ut_loc)
+    sector_id = np.asarray(sector_id, ut_loc.dtype)
+    while sector_id.ndim < 2:
+        sector_id = sector_id[None]
+    cell_loc = np.asarray(cell_loc, ut_loc.dtype)
+    while cell_loc.ndim < ut_loc.ndim:
+        cell_loc = cell_loc[None]
+
+    angle = sector_id * 2. * PI / 3.0
+    rot = np.stack([np.cos(angle), -np.sin(angle),
+                    np.sin(angle), np.cos(angle)], axis=-1)
+    rot = rot.reshape(angle.shape + (2, 2))
+    ut_loc_rot = np.squeeze(rot @ ut_loc[..., None], axis=-1)
+    return ut_loc_rot + cell_loc
+
+
+def random_ut_properties(batch_size, num_ut, indoor_probability,
+                         min_ut_velocity, max_ut_velocity,
+                         precision=None):
+    """Random UT orientations, planar velocities and indoor states."""
+    rdtype = _np_rdtype(precision)
+    rng = config.np_rng
+    in_state = rng.uniform(size=(batch_size, num_ut)) \
+        < float(indoor_probability)
+
+    vel_angle = rng.uniform(-PI, PI, (batch_size, num_ut))
+    vel_norm = rng.uniform(float(min_ut_velocity),
+                           float(max_ut_velocity) + 1e-12,
+                           (batch_size, num_ut))
+    ut_velocities = np.stack(
+        [vel_norm * np.cos(vel_angle), vel_norm * np.sin(vel_angle),
+         np.zeros((batch_size, num_ut))], axis=-1).astype(rdtype)
+
+    ut_orientations = rng.uniform(
+        -0.5 * PI, 0.5 * PI, (batch_size, num_ut, 3)).astype(rdtype)
+    return ut_orientations, ut_velocities, in_state
+
+
+def generate_uts_topology(batch_size, num_ut, drop_area, cell_loc_xy,
+                          min_bs_ut_dist, isd, min_ut_height,
+                          max_ut_height, indoor_probability,
+                          min_ut_velocity, max_ut_velocity,
+                          precision=None):
+    """Samples UT locations from a sector or a whole cell."""
+    if drop_area not in ("sector", "cell"):
+        raise ValueError("drop_area must be 'sector' or 'cell'")
+    rdtype = _np_rdtype(precision)
+    rng = config.np_rng
+
+    ut_loc_xy = drop_uts_in_sector(batch_size, num_ut, min_bs_ut_dist,
+                                   isd, precision=precision)
+    if drop_area == "sector":
+        sectors = np.zeros((batch_size, num_ut), np.int32)
+    else:
+        sectors = rng.integers(0, 3, (batch_size, num_ut))
+    ut_loc_xy = relocate_uts(ut_loc_xy, sectors, cell_loc_xy)
+
+    ut_loc_z = rng.uniform(float(min_ut_height),
+                           float(max_ut_height) + 1e-12,
+                           (batch_size, num_ut, 1))
+    ut_loc = np.concatenate([ut_loc_xy, ut_loc_z],
+                            axis=-1).astype(rdtype)
+
+    ut_orientations, ut_velocities, in_state = random_ut_properties(
+        batch_size, num_ut, indoor_probability, min_ut_velocity,
+        max_ut_velocity, precision)
+    return ut_loc, ut_orientations, ut_velocities, in_state
+
+
+def _single_sector_bs(batch_size, min_bs_ut_dist, isd, bs_height,
+                      rdtype):
+    """BS at the origin, downtilted towards the sector center."""
+    bs_loc = np.zeros((batch_size, 1, 3), rdtype)
+    bs_loc[:, :, 2] = bs_height
+    sector_center = (min_bs_ut_dist + 0.5 * isd) * 0.5
+    bs_downtilt = 0.5 * PI - np.arctan(sector_center / bs_height)
+    bs_orientation = np.zeros((batch_size, 1, 3), rdtype)
+    bs_orientation[:, :, 0] = PI / 3.0
+    bs_orientation[:, :, 1] = bs_downtilt
+    return bs_loc, bs_orientation
+
+
+def gen_single_sector_topology(batch_size, num_ut, scenario,
+                               min_bs_ut_dist=None, isd=None,
+                               bs_height=None, min_ut_height=None,
+                               max_ut_height=None,
+                               indoor_probability=None,
+                               min_ut_velocity=None,
+                               max_ut_velocity=None, precision=None):
+    """Single-BS, single-sector topology drop.  Returns (ut_loc, bs_loc,
+    ut_orientations, bs_orientations, ut_velocities, in_state) ready
+    for ``set_topology``."""
+    (min_bs_ut_dist, isd, bs_height, min_ut_height, max_ut_height,
+     indoor_probability, min_ut_velocity, max_ut_velocity) = \
+        set_3gpp_scenario_parameters(
+            scenario, min_bs_ut_dist, isd, bs_height, min_ut_height,
+            max_ut_height, indoor_probability, min_ut_velocity,
+            max_ut_velocity, precision)
+    rdtype = _np_rdtype(precision)
+    bs_loc, bs_orientation = _single_sector_bs(
+        batch_size, min_bs_ut_dist, isd, bs_height, rdtype)
+    ut_loc, ut_orientations, ut_velocities, in_state = \
+        generate_uts_topology(
+            batch_size, num_ut, "sector", np.zeros(2, rdtype),
+            min_bs_ut_dist, isd, min_ut_height, max_ut_height,
+            indoor_probability, min_ut_velocity, max_ut_velocity,
+            precision)
+    return (ut_loc, bs_loc, ut_orientations, bs_orientation,
+            ut_velocities, in_state)
+
+
+def gen_single_sector_topology_interferers(
+        batch_size, num_ut, num_interferer, scenario,
+        min_bs_ut_dist=None, isd=None, bs_height=None,
+        min_ut_height=None, max_ut_height=None,
+        indoor_probability=None, min_ut_velocity=None,
+        max_ut_velocity=None, precision=None):
+    """Single-sector topology plus ``num_interferer`` UTs dropped in
+    the two adjacent cells.  The first
+    ``num_ut`` UTs along axis 1 are the served ones."""
+    (min_bs_ut_dist, isd, bs_height, min_ut_height, max_ut_height,
+     indoor_probability, min_ut_velocity, max_ut_velocity) = \
+        set_3gpp_scenario_parameters(
+            scenario, min_bs_ut_dist, isd, bs_height, min_ut_height,
+            max_ut_height, indoor_probability, min_ut_velocity,
+            max_ut_velocity, precision)
+    rdtype = _np_rdtype(precision)
+    rng = config.np_rng
+    bs_loc, bs_orientation = _single_sector_bs(
+        batch_size, min_bs_ut_dist, isd, bs_height, rdtype)
+
+    ut_loc, ut_orientations, ut_velocities, in_state = \
+        generate_uts_topology(
+            batch_size, num_ut, "sector", np.zeros(2, rdtype),
+            min_bs_ut_dist, isd, min_ut_height, max_ut_height,
+            indoor_probability, min_ut_velocity, max_ut_velocity,
+            precision)
+
+    # Interferers dropped in one of the two adjacent cells
+    inter_cell_center = np.array(
+        [[0.0, isd],
+         [isd * np.cos(PI / 6.0), isd * np.sin(PI / 6.0)]], rdtype)
+    cell_index = rng.integers(0, 2, (batch_size, num_interferer))
+    inter_cells = inter_cell_center[cell_index]
+
+    inter_loc, inter_orientations, inter_velocities, inter_in_state = \
+        generate_uts_topology(
+            batch_size, num_interferer, "cell", inter_cells,
+            min_bs_ut_dist, isd, min_ut_height, max_ut_height,
+            indoor_probability, min_ut_velocity, max_ut_velocity,
+            precision)
+
+    ut_loc = np.concatenate([ut_loc, inter_loc], axis=1)
+    ut_orientations = np.concatenate(
+        [ut_orientations, inter_orientations], axis=1)
+    ut_velocities = np.concatenate(
+        [ut_velocities, inter_velocities], axis=1)
+    in_state = np.concatenate([in_state, inter_in_state], axis=1)
+    return (ut_loc, bs_loc, ut_orientations, bs_orientation,
+            ut_velocities, in_state)

@@ -1,5 +1,5 @@
 """Shape-algebra utilities (counterpart of
-``sionna_tpu/phy/utils/tensors.py``; the slice needs these two)."""
+``sionna_tpu/phy/utils/tensors.py``)."""
 
 import torch
 
@@ -24,3 +24,90 @@ def insert_dims(tensor, num_dims, axis=-1):
         axis += rank + 1
     shape = tuple(tensor.shape)
     return tensor.reshape(shape[:axis] + (1,) * num_dims + shape[axis:])
+
+
+def flatten_dims(tensor, num_dims, axis):
+    """Flattens ``num_dims`` consecutive axes starting at ``axis`` into
+    one axis."""
+    tensor = torch.as_tensor(tensor)
+    if num_dims < 2:
+        raise ValueError("`num_dims` must be >= 2")
+    if num_dims > tensor.dim():
+        raise ValueError("`num_dims` must <= rank(`tensor`)")
+    if axis < 0:
+        axis += tensor.dim()
+    if not 0 <= axis <= tensor.dim() - 1:
+        raise ValueError("0<= `axis` <= rank(tensor)-1")
+    if num_dims + axis > tensor.dim():
+        raise ValueError("`num_dims`+`axis` <= rank(`tensor`)")
+    return tensor.flatten(axis, axis + num_dims - 1)
+
+
+def flatten_last_dims(tensor, num_dims=2):
+    """Flattens the last ``num_dims`` axes."""
+    tensor = torch.as_tensor(tensor)
+    return flatten_dims(tensor, num_dims, tensor.dim() - num_dims)
+
+
+def split_dim(tensor, shape, axis):
+    """Reshapes the axis at position ``axis`` into ``shape``."""
+    tensor = torch.as_tensor(tensor)
+    if axis < 0:
+        axis += tensor.dim()
+    if not 0 <= axis <= tensor.dim() - 1:
+        raise ValueError("0<= `axis` <= rank(tensor)-1")
+    s = tuple(tensor.shape)
+    return tensor.reshape(s[:axis] + tuple(shape) + s[axis + 1:])
+
+
+def flatten_multi_index(indices, shape):
+    """Converts multi-dimensional indices (the last axis holds the
+    coordinates) into flat indices of a tensor of shape ``shape``."""
+    indices = torch.as_tensor(indices)
+    shape = [int(s) for s in shape]
+    # the strides as Python numbers: nothing is copied to the device
+    flat = indices[..., 0]
+    for i, s in enumerate(shape[1:], start=1):
+        flat = flat * s + indices[..., i]
+    return flat
+
+
+def gather_from_batched_indices(params, indices):
+    """Gathers values of ``params`` (rank N) at the batched ``indices``
+    [..., N], the last axis holding one index per axis of ``params``:
+    a tensor of shape [...]. Indices must lie inside ``params``'s
+    shape."""
+    params = torch.as_tensor(params)
+    flat_idx = flatten_multi_index(indices, params.shape)
+    return params.reshape(-1)[flat_idx.long()]
+
+
+def tensor_values_are_in_set(tensor, admissible_set):
+    """`True` (a bool tensor) iff every element of ``tensor`` belongs to
+    ``admissible_set``."""
+    tensor = torch.as_tensor(tensor)
+    admissible = torch.as_tensor(admissible_set, device=tensor.device
+                                 ).reshape(-1)
+    return torch.all(torch.any(tensor[..., None] == admissible, dim=-1))
+
+
+def enumerate_indices(bounds, device=None):
+    """All index combinations within ``bounds`` as the rows of a
+    [prod(bounds), len(bounds)] int64 tensor, on ``device`` (default:
+    the CPU)."""
+    grids = torch.meshgrid(*[torch.arange(int(b), device=device)
+                             for b in bounds], indexing="ij")
+    return torch.stack([g.reshape(-1) for g in grids], dim=-1)
+
+
+def find_true_position(bool_tensor, side="last", axis=-1):
+    """Position of the first/last `True` along ``axis``; -1 if none."""
+    bt = torch.as_tensor(bool_tensor).to(torch.bool).movedim(axis, -1)
+    n = bt.shape[-1]
+    idx = torch.arange(n, device=bt.device)
+    if side == "last":
+        return torch.where(bt, idx, -1).amax(dim=-1)
+    if side == "first":
+        pos = torch.where(bt, idx, n).amin(dim=-1)
+        return torch.where(pos == n, -1, pos)
+    raise ValueError("side must be 'first' or 'last'")
