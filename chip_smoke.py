@@ -144,6 +144,34 @@ Phases 20-22 run in a process of their own, every tensor on ``cuda:0``.
 No kernel is written for them: the JAX package's SYS blocks and
 system-level channel are XLA code; phase 22's decoder runs K1.
 
+23. holds the port's ``PUSCHTransmitter`` on the card to 12 of the
+    reference's stored waveforms (``tests/nr/pusch_test_configs``, the
+    ones ``tests/test_nr.py`` runs; within 1e-5) and ``TBEncoder`` to
+    every ``tests/nr/tb_refs`` case, bit-exact with and without the
+    scrambler, every output on ``cuda:0``;
+24. runs the PUSCH tutorial's link (``docs/tutorials/04_5g_nr_pusch.md``:
+    16 PRBs at 30 kHz, 2 ports, 2 layers, codebook TPMI 1, DMRS type 1
+    with one additional position, MCS 14) over config 3's CDL-B uplink
+    through ``OFDMChannel`` with AWGN, ``PUSCHReceiver``'s default chain
+    (LS "lin", LMMSE max-log, ``TBDecoder`` boxplus-phi BP-20 on K1),
+    through ``sim_ber`` at 3.5 dB and batch 256: the TB BLER inside the
+    band of ``tools/pusch_bler.py`` (the JAX link on the CPU), one K1
+    launch per ``TBDecoder`` call; then perfect CSI, the time domain
+    (``TimeChannel``, ``OFDMDemodulator``) and the min-sum ``TBDecoder``
+    (BP-12, K2) on one batch at 15 dB: BER 0, one launch of the right
+    variant;
+25. runs the same settings at 273 PRBs (100 MHz at 30 kHz: a 167,976-bit
+    TB in 20 code blocks of BG1 at Z=384, n=15728), batch 64: ms per
+    stage (CUDA events), per MC iteration, the info-bit Mbit/s, one K1
+    launch per iteration, the peak memory; K1 alone on the iteration's
+    own decoder input (1,280 codewords, BP-20) identical to its plain
+    decode, timed in turns with it, beside its bound; and the launches
+    and device busy share of one iteration (``torch.profiler``).
+
+Phases 23-25 run in a process of their own. No kernel is written for
+them: the JAX package's NR blocks are NumPy and XLA code; their
+``TBDecoder`` runs K1 (K2 for min-sum).
+
 Phases 15 and 16 run in a process of their own; each link is held to
 its BLER band from a JAX run of the same link
 (``tools/fec_links_bler.py``), with every tensor on the card and no
@@ -159,10 +187,13 @@ and last ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
 Run from the repository root: ``python3 chip_smoke.py``.
 """
 
+import functools
+import glob
 import hashlib
 import json
 import multiprocessing
 import os
+import pickle
 import queue
 import re
 import subprocess
@@ -176,7 +207,7 @@ import torch
 from sionna_tpu_torch.phy import (AWGN, BinarySource, Demapper, Mapper,
                                   config)
 from sionna_tpu_torch.phy.channel import (ApplyTimeChannel, OFDMChannel,
-                                          cir_to_ofdm_channel,
+                                          TimeChannel, cir_to_ofdm_channel,
                                           cir_to_time_channel,
                                           subcarrier_frequencies,
                                           time_lag_discrete_time_channel)
@@ -205,6 +236,8 @@ from sionna_tpu_torch.phy.ofdm import (EPDetector, KBestDetector,
                                        ResourceGrid, ResourceGridMapper,
                                        RZFPrecoder, ZFEqualizer,
                                        tdl_freq_cov_mat, tdl_time_cov_mat)
+from sionna_tpu_torch.phy.nr import (PUSCHConfig, PUSCHReceiver,
+                                    PUSCHTransmitter, TBDecoder, TBEncoder)
 from sionna_tpu_torch.phy.nr.utils import CodedAWGNChannelNR
 from sionna_tpu_torch.phy.utils import Profiler, ebnodb2no, sim_ber
 from sionna_tpu_torch.sys import PHYAbstraction
@@ -357,6 +390,29 @@ SYS_BLER_JAX = {(5, -1.0): (32263, 40000), (5, -0.75): (17923, 40000),
                 (14, 6.75): (19616, 40000), (14, 7.0): (8056, 40000),
                 (20, 12.0): (32196, 40000), (20, 12.5): (10890, 40000),
                 (20, 13.0): (999, 40000)}
+# The 5G NR PUSCH (phases 23-25): the stored references of tests/nr and
+# their bound (tests/test_nr.py); the tutorial's link over CDL-B at 16
+# PRBs through sim_ber (tools/pusch_bler.py: Eb/N0, batch of TBs, MC
+# iterations), its checks at a high SNR, and the same settings at 273
+# PRBs (100 MHz at 30 kHz), batch 64, at an SNR where every TB should
+# decode
+NR_DIR = "tests/nr"
+# the 12 waveforms tests/test_nr.py holds the JAX package to (all 83
+# take about 20 s of host work, the DMRS and CRC tables of each
+# configuration; tests/test_torch_pusch.py runs them all on the CPU)
+GOLDEN_IDS = (0, 5, 11, 19, 27, 35, 43, 51, 59, 67, 75, 82)
+WAVEFORM_ATOL = 1e-5
+PUSCH_FC = 3.5e9
+PUSCH = dict(n_size_grid=16, ebno_db=3.5, batch=256, mc_iter=40)
+PUSCH_CHECK = dict(ebno_db=15.0, batch=16)
+PUSCH_FULL = dict(n_size_grid=273, ebno_db=10.0, batch=64)
+PUSCH_FULL_MAX_BLER = 0.05
+# the seed of the phases' random streams (bits, channels, noise)
+PUSCH_SEED = 23
+# Its TB BLER from the JAX package's run of the same link on the CPU
+# (tools/pusch_bler.py --blocks 10240 --batch 256, seeds 0 and 1 pooled):
+# (block errors, blocks)
+PUSCH_JAX = (2292, 20480)
 
 
 def rate_band(errors, blocks, n_port):
@@ -382,6 +438,9 @@ def bler_band(schedule, ebno_db):
     elif schedule in FEC_LINKS:
         errors, blocks = FEC_JAX[(schedule, ebno_db)]
         n_port = FEC_LINKS[schedule]["batch"] * FEC_LINKS[schedule]["mc_iter"]
+    elif schedule == "pusch":
+        errors, blocks = PUSCH_JAX
+        n_port = PUSCH["batch"] * PUSCH["mc_iter"]
     elif schedule in MIMO_LINKS:
         errors, blocks = MIMO_JAX[(schedule, ebno_db)]
         cfg = MIMO_LINKS[schedule]
@@ -1845,6 +1904,395 @@ def sys_phases(card, results, per_update):
     results.put({})
 
 
+def load_golden(path):
+    """(bits, grid) of a stored PUSCH waveform of ``tests/nr``: its bits
+    are pickled as a TensorFlow tensor, which reads back here as a NumPy
+    array (no TensorFlow needed); every other class as NumPy's."""
+    class Unpickler(pickle.Unpickler):
+        def find_class(self, module, name):
+            if (module, name) == ("tensorflow.python.framework.ops",
+                                  "convert_to_tensor"):
+                return lambda value, *args, **kwargs: np.asarray(value)
+            return super().find_class(module, name)
+
+    with open(path, "rb") as f:
+        if np.lib.format.read_magic(f) == (1, 0):
+            np.lib.format.read_array_header_1_0(f)
+        else:
+            np.lib.format.read_array_header_2_0(f)
+        b, grid = Unpickler(f).load()
+    return np.asarray(b), np.asarray(grid)
+
+
+def golden_pusch_config(cfg):
+    """The port's PUSCHConfig of a golden configuration (the settings of
+    tests/test_nr.py:load_pusch_config)."""
+    pc = PUSCHConfig()
+    pc.carrier.n_cell_id = cfg["carrier"]["n_cell_id"]
+    pc.carrier.slot_number = cfg["carrier"]["slot_number"]
+    p = cfg["pusch"]
+    pc.n_size_bwp = p["n_size_bwp"]
+    pc.symbol_allocation = p["symbol_allocation"]
+    pc.n_rnti = p["n_rnti"]
+    pc.num_antenna_ports = p["num_antenna_ports"]
+    pc.num_layers = p["num_layers"]
+    pc.precoding = p["precoding"]
+    if pc.precoding == "codebook":
+        pc.tpmi = p["tpmi"]
+    for name in ("length", "config_type", "additional_position",
+                 "num_cdm_groups_without_data", "dmrs_port_set", "n_scid",
+                 "n_id"):
+        setattr(pc.dmrs, name, p["dmrs"][name])
+    pc.tb.mcs_index = p["tb"]["mcs_index"]
+    pc.tb.mcs_table = p["tb"]["mcs_table"]
+    return pc
+
+
+def run_nr_goldens(dev):
+    """Phase 23: the port's PUSCHTransmitter on the stored waveforms
+    GOLDEN_IDS of tests/nr/pusch_test_configs (within WAVEFORM_ATOL) and
+    TBEncoder on every tests/nr/tb_refs case (bit-exact, with and without
+    the scrambler), on the card."""
+    cfg_dir = os.path.join(NR_DIR, "pusch_test_configs")
+    t0 = time.perf_counter()
+    worst, outputs = 0.0, []
+    for i in GOLDEN_IDS:
+        b, grid = load_golden(os.path.join(cfg_dir, f"test_{i}.npy"))
+        with open(os.path.join(cfg_dir, f"test_{i}.json")) as f:
+            pc = golden_pusch_config(json.load(f))
+        tx = PUSCHTransmitter(pc, return_bits=False, device=dev)
+        x = tx(torch.as_tensor(b.astype(np.float32), device=dev))
+        outputs.append(x)
+        xg = x[0, 0].permute(2, 1, 0).squeeze().cpu().numpy()
+        err = float(np.abs(xg - grid).max())
+        worst = max(worst, err)
+        if xg.shape != grid.shape or not err <= WAVEFORM_ATOL:
+            raise AssertionError(f"[23] waveform {i}: max |port - stored| "
+                                 f"{err} (bound {WAVEFORM_ATOL})")
+    wave_s = time.perf_counter() - t0
+    cases = sorted(glob.glob(os.path.join(NR_DIR, "tb_refs", "*.npz")))
+    t0 = time.perf_counter()
+    for path in cases:
+        data = np.load(path)
+        u = torch.as_tensor(data["u_ref"].astype(np.float32), device=dev)
+        for scrambler, want in ((True, data["c_ref"]),
+                                (False, data["c_ref_no_scr"])):
+            enc = TBEncoder(
+                target_tb_size=data["u_ref"].shape[1],
+                num_coded_bits=data["c_ref"].shape[1],
+                target_coderate=float(data["coderate"]),
+                num_bits_per_symbol=int(data["num_bits_per_symbol"]),
+                num_layers=int(data["num_layers"]),
+                n_rnti=int(data["n_rnti"]), n_id=int(data["n_id"]),
+                use_scrambler=scrambler, device=dev)
+            c = enc(u)
+            outputs.append(c)
+            if not np.array_equal(c.cpu().numpy().astype(np.int64),
+                                  want.astype(np.int64)):
+                raise AssertionError(f"[23] {os.path.basename(path)}: TB "
+                                     f"encoder differs (scrambler "
+                                     f"{scrambler})")
+    on_card("[23]", outputs, dev)
+    print(f"    {len(GOLDEN_IDS)} stored waveforms within {WAVEFORM_ATOL:g} (max "
+          f"|port - stored| {worst:.3e}) in {wave_s:.2f} s; {len(cases)} TB "
+          f"references bit-exact with and without the scrambler in "
+          f"{time.perf_counter() - t0:.2f} s; every output on {dev}")
+
+
+def pusch_config(n_size_grid):
+    """The PUSCH tutorial's settings (docs/tutorials/04_5g_nr_pusch.md:
+    30 kHz, 2 antenna ports, 2 layers, codebook TPMI 1, DMRS type 1 with
+    one additional position, MCS 14 of table 1) at ``n_size_grid``
+    PRBs."""
+    pc = PUSCHConfig()
+    pc.carrier.subcarrier_spacing = 30
+    pc.carrier.n_size_grid = n_size_grid
+    pc.num_antenna_ports = 2
+    pc.num_layers = 2
+    pc.precoding = "codebook"
+    pc.tpmi = 1
+    pc.dmrs.config_type = 1
+    pc.dmrs.additional_position = 1
+    pc.tb.mcs_index = 14
+    return pc
+
+
+class PuschLink:
+    """Phases 24-25: ``tools/pusch_bler.py``'s link on the port's public
+    blocks: PUSCHTransmitter, CDL-B uplink (UE: one dual-polarized
+    element, the 2 ports; BS: config 3's 1 x 2 cross-polarized array)
+    through OFDMChannel (or TimeChannel for ``domain="time"``) with AWGN,
+    PUSCHReceiver (LS "lin", or ``csi="perfect"``; LMMSE max-log;
+    TBDecoder boxplus-phi BP-20 on K1, or ``minsum``: min-sum BP-12 on
+    K2). A call is one MC iteration (the sim_ber model) and one TBDecoder
+    call. ``stages`` runs the frequency-domain LS link with OFDMChannel's
+    two halves split and ``mark``s the end of each stage, the transmitter's
+    and receiver's inner stages through forward hooks."""
+
+    def __init__(self, dev, n_size_grid, domain="freq", csi=None,
+                 minsum=False):
+        self.dev, self.calls, self.devices = dev, 0, set()
+        self.perfect = csi == "perfect"
+        pc = pusch_config(n_size_grid)
+        self.nbps, self.rate = pc.tb.num_bits_per_symbol, \
+            pc.tb.target_coderate
+        self.tx = PUSCHTransmitter(pc, output_domain=domain, device=dev)
+        self.rg = rg = self.tx.resource_grid
+        ue = AntennaArray(num_rows=1, num_cols=1, polarization="dual",
+                          polarization_type="cross",
+                          antenna_pattern="38.901", carrier_frequency=PUSCH_FC)
+        self.cdl = CDL("B", 100e-9, PUSCH_FC, ue, cross_array(2, PUSCH_FC),
+                       "uplink", min_speed=3., device=dev)
+        rkw = dict(channel_estimator=csi, return_tb_crc_status=True,
+                   input_domain=domain)
+        if domain == "time":
+            self.channel = TimeChannel(self.cdl, rg.bandwidth,
+                                       rg.num_time_samples,
+                                       normalize_channel=True,
+                                       return_channel=self.perfect,
+                                       device=dev)
+            rkw["l_min"] = self.channel.l_min
+        else:
+            self.channel = OFDMChannel(self.cdl, rg, normalize_channel=True,
+                                       return_channel=self.perfect,
+                                       device=dev)
+        if minsum:
+            rkw["tb_decoder"] = TBDecoder(self.tx._tb_encoder, num_bp_iter=12,
+                                          cn_update="minsum", device=dev)
+        self.rx = PUSCHReceiver(self.tx, device=dev, **rkw)
+        self.freqs = subcarrier_frequencies(rg.fft_size,
+                                            rg.subcarrier_spacing, device=dev)
+        self.k = self.tx._tb_size
+        self._mark = None
+        dec = self.rx._tb_decoder
+        ldpc = dec._decoder
+        for module, name, pre in (
+                (self.tx._tb_encoder, "source and TB encode", False),
+                (self.tx._precoder, "map, layer map, RG map, precode",
+                 False),
+                (self.rx._channel_estimator if csi is None else None,
+                 "LS estimation and lin interpolation", False),
+                (self.rx._mimo_detector, "LMMSE detection, max-log demap",
+                 False),
+                (ldpc, "layer demap, descramble, deinterleave", True),
+                (ldpc, "K1: LDPC5GDecoder (rate recovery, BP-20)", False),
+                (dec, "CB and TB CRCs", False)):
+            if module is None:
+                continue
+            hook = functools.partial(self._hook, name)
+            if pre:
+                module.register_forward_pre_hook(hook)
+            else:
+                module.register_forward_hook(hook)
+
+    def _hook(self, name, *args):
+        if self._mark is not None:
+            self._mark(name)
+
+    def no(self, ebno_db):
+        return ebnodb2no(ebno_db, self.nbps, self.rate, self.rg).to(self.dev)
+
+    def __call__(self, batch_size, ebno_db):
+        no = self.no(ebno_db)
+        x, b = self.tx(int(batch_size))
+        if self.perfect:
+            y, h = self.channel(x, no)
+            b_hat, crc = self.rx(y, no, h)
+        else:
+            y = self.channel(x, no)
+            b_hat, crc = self.rx(y, no)
+        self.calls += 1
+        self.devices.update(str(t.device) for t in (no, x, b, y, b_hat, crc))
+        return b, b_hat
+
+    def stages(self, batch_size, ebno_db, mark):
+        """One MC iteration of the frequency-domain LS link, ``mark``ing
+        the end of each stage."""
+        rg, no = self.rg, self.no(ebno_db)
+        self._mark = mark
+        try:
+            x, _ = self.tx(batch_size)
+            a, tau = self.cdl(batch_size, rg.num_ofdm_symbols,
+                              1 / rg.ofdm_symbol_duration)
+            mark("CDL-B (14 steps)")
+            h = cir_to_ofdm_channel(self.freqs, a, tau, normalize=True)
+            y = self.channel.app(x, h, no)
+            mark("CIR -> OFDM, channel application, noise")
+            self.rx(y, no)
+        finally:
+            self._mark = None
+
+
+def run_pusch_link(dev, card):
+    """Phase 24: the tutorial's PUSCH link over CDL-B through sim_ber at
+    PUSCH["ebno_db"], every count at 0 just before and read just after:
+    the TB BLER inside the JAX band, one K1 launch per TBDecoder call;
+    then perfect CSI and the time domain at a high SNR (BER 0), and the
+    min-sum TBDecoder on K2."""
+    cfg = PUSCH
+    link = PuschLink(dev, cfg["n_size_grid"])
+    reset_launches()
+    t0 = time.perf_counter()
+    ber, bler = sim_ber(link, [cfg["ebno_db"]], batch_size=cfg["batch"],
+                        max_mc_iter=cfg["mc_iter"], early_stop=False,
+                        verbose=False)
+    torch.cuda.synchronize()
+    launches = {kern.name: dict(kern.variant_launches) for kern in KERNELS}
+    bler = float(bler[0])
+    lo, hi = bler_band("pusch", cfg["ebno_db"])
+    print(f"    {cfg['n_size_grid']} PRBs (TB {link.k} bits, "
+          f"{link.tx._tb_encoder.num_cbs} code blocks of n="
+          f"{link.tx._tb_encoder.ldpc_encoder.n}) at {cfg['ebno_db']} dB, "
+          f"batch {cfg['batch']} x {cfg['mc_iter']}: TB BLER {bler:.5f} "
+          f"(band [{lo:.4f}, {hi:.4f}]), BER {float(ber[0]):.3e}, "
+          f"{link.calls} TBDecoder calls, launches {launches}, devices "
+          f"{sorted(link.devices)}, {time.perf_counter() - t0:.2f} s")
+    if not lo <= bler <= hi:
+        raise AssertionError(f"[24] TB BLER {bler} outside [{lo}, {hi}]")
+    if link.devices != {"cuda:0"}:
+        raise AssertionError(f"[24] tensors on {link.devices}")
+    if launches != {LIFTED_BP_KERNEL.name: {"f32": link.calls},
+                    LAYERED_BP_KERNEL.name: {}}:
+        raise AssertionError(f"[24] {launches} for {link.calls} TBDecoder "
+                             "calls")
+    for what, kw, variant in (
+            ("perfect CSI", dict(csi="perfect"), "f32"),
+            ("time domain (TimeChannel, OFDMDemodulator)",
+             dict(domain="time"), "f32"),
+            ("min-sum TBDecoder, BP-12", dict(minsum=True), "f32+minsum")):
+        link = PuschLink(dev, cfg["n_size_grid"], **kw)
+        reset_launches()
+        b, b_hat = link(PUSCH_CHECK["batch"], PUSCH_CHECK["ebno_db"])
+        ber = float((b != b_hat).float().mean())
+        launches = {kern.name: dict(kern.variant_launches)
+                    for kern in KERNELS}
+        print(f"    {what}: BER {ber} at {PUSCH_CHECK['ebno_db']} dB, batch "
+              f"{PUSCH_CHECK['batch']}; launches {launches}; devices "
+              f"{sorted(link.devices)}")
+        if ber != 0.0:
+            raise AssertionError(f"[24] {what}: BER {ber} at "
+                                 f"{PUSCH_CHECK['ebno_db']} dB")
+        if link.devices != {"cuda:0"}:
+            raise AssertionError(f"[24] {what}: tensors on {link.devices}")
+        if launches != {LIFTED_BP_KERNEL.name: {variant: 1},
+                        LAYERED_BP_KERNEL.name: {}}:
+            raise AssertionError(f"[24] {what}: {launches} for one TBDecoder "
+                                 "call")
+
+
+def run_pusch_full_width(dev, card, per_update):
+    """Phase 25: the same settings at 273 PRBs (100 MHz at 30 kHz), batch
+    64: every count at 0 before the timed iterations and read after (one
+    K1 launch per iteration), the stages (CUDA events), ms per MC
+    iteration, info-bit Mbit/s, peak memory; then K1 alone on the
+    iteration's own decoder input, held identical to its plain decode and
+    timed in turns with it, beside its bound (``per_update``: FP32
+    instructions and operations of one boxplus edge-lane update); last,
+    the launches and device busy share of one iteration
+    (``torch.profiler``). Returns the iteration for the profiler."""
+    cfg = PUSCH_FULL
+    batch, ebno_db = cfg["batch"], cfg["ebno_db"]
+    t0 = time.perf_counter()
+    link = PuschLink(dev, cfg["n_size_grid"])
+    enc = link.tx._tb_encoder
+    print(f"    {cfg['n_size_grid']} PRBs: TB {enc.tb_size} bits, "
+          f"{enc.num_cbs} code blocks of k={enc.cb_size}, n="
+          f"{enc.ldpc_encoder.n} (BG{enc.ldpc_encoder._bg[-1]}, Z="
+          f"{enc.ldpc_encoder.z}), rate-matched lengths "
+          f"{sorted(set(enc.cw_lengths.tolist()))}; blocks built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    seen = {}
+    dec = link.rx._tb_decoder._decoder
+    dec.register_forward_pre_hook(
+        lambda module, args: seen.__setitem__("llr_cb", args[0]))
+    with torch.no_grad():
+        link(batch, ebno_db)  # warm-up: the scrambler's sequences, plans
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        errors, iters = 0, 0
+
+        def iteration():
+            nonlocal errors, iters
+            b, b_hat = link(batch, ebno_db)
+            errors += int((b != b_hat).any(dim=-1).sum())
+            iters += 1
+
+        it_ms = median_ms(iteration, 5)
+        k1 = LIFTED_BP_KERNEL.variant_launches.get("f32", 0)
+        launches = {kern.name: dict(kern.variant_launches)
+                    for kern in KERNELS}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        stages = marked_stage_ms(
+            lambda mark: link.stages(batch, ebno_db, mark), 5)
+    bler = errors / (iters * batch)
+    print(f"    {iters} MC iterations at {ebno_db} dB: TB BLER {bler:.4f}, "
+          f"launches {launches} (one K1 launch per iteration), peak memory "
+          f"{peak:.2f} GiB, devices {sorted(link.devices)}")
+    if k1 != iters or launches != {LIFTED_BP_KERNEL.name: {"f32": iters},
+                                   LAYERED_BP_KERNEL.name: {}}:
+        raise AssertionError(f"[25] {launches} in {iters} iterations")
+    if link.devices != {"cuda:0"}:
+        raise AssertionError(f"[25] tensors on {link.devices}")
+    if not bler <= PUSCH_FULL_MAX_BLER:
+        raise AssertionError(f"[25] TB BLER {bler} at {ebno_db} dB above "
+                             f"{PUSCH_FULL_MAX_BLER}")
+    total = sum(stages.values())
+    for stage, t in stages.items():
+        print(f"      {stage:42s} {t:9.3f} ms  {100 * t / total:5.1f} %")
+    print(f"      {'sum of stages':42s} {total:9.3f} ms")
+    bits = batch * link.k
+    print(f"    pusch_273prb_info_bit_throughput: {bits / it_ms / 1e3:.3f} "
+          f"Mbit/s ({it_ms:.3f} ms per MC iteration, median of 5, batch "
+          f"{batch} x {link.k} info bits) on {card}")
+
+    # K1 alone at the iteration's own code and input, after the counts
+    # were read
+    llr = dec.recover_llrs(seen["llr_cb"])
+    it = dec.num_iter
+    ker, plain = variant_calls("ldpc_lifted_bp", dec.lifted)
+    shape = (f"BG1 Z={dec.lifted._z}, n={dec.encoder.n} x {llr.shape[0]}, "
+             f"BP-{it} boxplus-phi")
+    err = assert_identical(ker(llr, it), plain(llr, it), f"[25] {shape}")
+    (k_a, k_b), (p_a, p_b) = in_turns(lambda: ker(llr, it),
+                                      lambda: plain(llr, it), 10, 2)
+    bound = lifted_bound(dec.lifted, llr.shape[0], it, per_update)
+    print(f"    ldpc_lifted_bp, {shape}: max|kernel-plain| {err:.3e}; kernel "
+          f"{k_a:.3f} / {k_b:.3f} ms, plain {p_a:.3f} / {p_b:.3f} ms per "
+          f"call on {card}; bound {bound[0]:.3f} ms ({bound[1]}), "
+          f"{100 * bound[0] / min(k_a, k_b):.1f} % of it; FP32 issue "
+          f"{bound[2]:.3f} ms")
+    print(f"      {launch_line('ldpc_lifted_bp', dec.lifted, llr.shape[0])}")
+    return lambda: link(batch, ebno_db), it_ms
+
+
+def nr_phases(card, results, per_update):
+    """Phases 23-25, run in a fresh process by ``main``; ``per_update``
+    as ``run_pusch_full_width`` takes it."""
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config.seed = PUSCH_SEED
+    t0 = time.perf_counter()
+    print(f"[23] the PUSCH transmitter and TB encoder against the stored "
+          f"references on {card}")
+    run_nr_goldens(dev)
+    print(f"[24] the PUSCH tutorial's link (16 PRBs, 2 layers, TPMI 1, "
+          f"MCS 14) over CDL-B through sim_ber on {card}")
+    run_pusch_link(dev, card)
+    print(f"[25] the same settings at 273 PRBs, batch 64 on {card}")
+    call, it_ms = run_pusch_full_width(dev, card, per_update)
+    # the profiler last: every launch after its window costs more
+    with torch.no_grad():
+        device, host, busy = launches_per_call(call)
+    print(f"[25] one MC iteration at 273 PRBs: {device} kernels and copies "
+          f"on the device, {host} cudaLaunchKernel, {busy:.3f} ms of device "
+          f"time in a {it_ms:.3f} ms iteration ({100 * busy / it_ms:.1f} % "
+          f"busy; torch.profiler)")
+    print(f"    phases 23-25: {time.perf_counter() - t0:.1f} s")
+    sys.stdout.flush()
+    results.put({})
+
+
 def run_in_process(target, card, timeout, *args):
     """Runs ``target(card, results, *args)`` in a fresh spawned process and
     returns what it put on the queue ``results`` (None if nothing);
@@ -2157,7 +2605,11 @@ def main():
     # phases 20-22 (BASELINE config 5), likewise
     t0 = time.perf_counter()
     run_in_process(sys_phases, card, 600, ops_per_update["log1p"])
-    print(f"    phases 20-22 took {time.perf_counter() - t0:.1f} s; the "
+    print(f"    phases 20-22 took {time.perf_counter() - t0:.1f} s")
+    # phases 23-25 (the 5G NR PUSCH link), likewise
+    t0 = time.perf_counter()
+    run_in_process(nr_phases, card, 600, ops_per_update["log1p"])
+    print(f"    phases 23-25 took {time.perf_counter() - t0:.1f} s; the "
           f"script {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{

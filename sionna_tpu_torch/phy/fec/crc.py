@@ -31,22 +31,19 @@ def _crc_parity_matrix(k, crc_degree):
     """
     coeffs = _CRC_COEFFS[crc_degree]
     d = coeffs[0]
-    # g(x) taps below degree d (coefficients of x^0..x^{d-1})
-    g_low = np.zeros(d, np.uint8)
-    for c in coeffs[1:]:
-        g_low[c] = 1
-    # r = x^d mod g = g_low (x^d = g(x) - its low part in GF(2))
-    rows = np.zeros((k, d), np.uint8)
-    r = g_low.copy()
-    rows[k - 1] = r
-    for i in range(k - 2, -1, -1):
+    # g(x) taps below degree d, bit j the coefficient of x^j
+    g_low = sum(1 << c for c in coeffs[1:])
+    mask = (1 << d) - 1
+    # r = x^d mod g = g_low (x^d = g(x) - its low part in GF(2)); the
+    # remainders as Python ints (a loop of shifts, fast for k ~ 1e5)
+    r = g_low
+    rems = [r]
+    for _ in range(k - 1):
         # r <- r * x mod g
-        carry = r[d - 1]
-        r = np.roll(r, 1)
-        r[0] = 0
-        if carry:
-            r ^= g_low
-        rows[i] = r
+        r = ((r << 1) & mask) ^ (g_low if r >> (d - 1) else 0)
+        rems.append(r)
+    rems = np.array(rems[::-1], np.int64)  # row i: x^(d + k - 1 - i)
+    rows = ((rems[:, None] >> np.arange(d)) & 1).astype(np.uint8)
     # 3GPP appends the remainder MSB first (the coefficient of x^{d-1}
     # first); the rows hold the coefficients of x^0..x^{d-1}
     return rows[:, ::-1]

@@ -34,9 +34,13 @@ def generate_prng_seq(length, c_init):
     c_init = int(c_init)
     for i in range(31):
         x2[i] = (c_init >> i) & 1
-    for i in range(total - 31):
-        x1[i + 31] = (x1[i + 3] + x1[i]) % 2
-        x2[i + 31] = (x2[i + 3] + x2[i + 2] + x2[i + 1] + x2[i]) % 2
+    # the recursions in chunks of 28 bits: x[i + 31] reads x[i..i + 3],
+    # all of them set before the chunk of i starts
+    for j in range(0, total - 31, 28):
+        e = min(j + 28, total - 31)
+        x1[j + 31:e + 31] = x1[j + 3:e + 3] ^ x1[j:e]
+        x2[j + 31:e + 31] = (x2[j + 3:e + 3] ^ x2[j + 2:e + 2]
+                             ^ x2[j + 1:e + 1] ^ x2[j:e])
     return ((x1[nc:nc + n] + x2[nc:nc + n]) % 2).astype(np.float32)
 
 
