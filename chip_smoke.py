@@ -172,6 +172,39 @@ Phases 23-25 run in a process of their own. No kernel is written for
 them: the JAX package's NR blocks are NumPy and XLA code; their
 ``TBDecoder`` runs K1 (K2 for min-sum).
 
+26. runs coded MIMO over spatially correlated flat fading (the
+    reference's ``Simple_MIMO_Simulation``, ``tools/flat_fading_bler.py``:
+    4 x 16 antennas, ``KroneckerModel(exp_corr_mat(0.4, 4),
+    exp_corr_mat(0.9, 16))``, 16-QAM, ``LDPC5GEncoder(512, 1024)`` (BG2,
+    Z=64), ``FlatFadingChannel``, ``lmmse_equalizer``, APP demapper,
+    ``LDPC5GDecoder`` BP-20 on K1) through ``sim_ber`` at batch 4096 and
+    3.5 dB, and ``BinarySymmetricChannel(return_llrs=True)`` into the
+    same decoder at pb 0.085: BLER bands from the JAX links on the CPU,
+    one K1 launch per decoder call, every tensor on ``cuda:0``; the MIMO
+    link's ms per stage (CUDA events), per MC iteration, Mbit/s and peak
+    memory; ``PerColumnModel``, Rayleigh block fading and a
+    ``CIRDataset`` of its draws into ``OFDMChannel`` against themselves on
+    the CPU; K1 alone at the links' n=1024 x 16,384 held identical to its
+    plain decode, timed in turns with it, beside its bound;
+27. runs the pulse-shaping tutorial (``docs/tutorials/10_pulse_shaping.md``:
+    RRC span 32, 4 samples per symbol, beta 0.22, 16-QAM [64, 1024],
+    upsampling, shaping, matched filter, downsampling): the symbols back
+    within the truncated RRC's ISI floor, the empirical ACLR near the
+    filter's, each filter class with and without each window against
+    itself on the CPU, ms per call;
+28. runs the optical tutorial's link (``docs/tutorials/09_optical_channel.md``:
+    10 spans of ``SSFM(n_ssfm=200, length=80)`` and a transparent
+    ``EDFA(f=5)`` on a [2, 1024] waveform), as written and with
+    ``with_manakov=True``: noise-free (g = 1, no amplification) the card
+    against the CPU after one span and after ten, in single and double
+    precision; the ASE power at the output against its analytic value;
+    the adaptive schedule's step count on the card and on the CPU; ms and
+    launches per span.
+
+Phases 26-28 run in a process of their own. No kernel is written for
+them: the JAX package's signal and channel blocks are NumPy and XLA
+code; phase 26's decoder runs K1.
+
 Phases 15 and 16 run in a process of their own; each link is held to
 its BLER band from a JAX run of the same link
 (``tools/fec_links_bler.py``), with every tensor on the card and no
@@ -205,12 +238,18 @@ import numpy as np
 import torch
 
 from sionna_tpu_torch.phy import (AWGN, BinarySource, Demapper, Mapper,
-                                  config)
-from sionna_tpu_torch.phy.channel import (ApplyTimeChannel, OFDMChannel,
+                                  QAMSource, config)
+from sionna_tpu_torch.phy.channel import (ApplyTimeChannel,
+                                          BinarySymmetricChannel, CIRDataset,
+                                          FlatFadingChannel,
+                                          GenerateFlatFadingChannel,
+                                          KroneckerModel, OFDMChannel,
+                                          PerColumnModel, RayleighBlockFading,
                                           TimeChannel, cir_to_ofdm_channel,
-                                          cir_to_time_channel,
+                                          cir_to_time_channel, exp_corr_mat,
                                           subcarrier_frequencies,
                                           time_lag_discrete_time_channel)
+from sionna_tpu_torch.phy.channel.optical import EDFA, SSFM
 from sionna_tpu_torch.phy.channel.tr38901 import CDL, TDL, AntennaArray
 from sionna_tpu_torch.phy.fec.interleaving import (Deinterleaver,
                                                    RowColumnInterleaver)
@@ -226,7 +265,7 @@ from sionna_tpu_torch.phy.fec.linear import LinearEncoder
 from sionna_tpu_torch.phy.fec.polar import Polar5GDecoder, Polar5GEncoder
 from sionna_tpu_torch.phy.fec.turbo import TurboDecoder, TurboEncoder
 from sionna_tpu_torch.phy.fec.utils import load_parity_check_examples, pcm2gm
-from sionna_tpu_torch.phy.mimo import StreamManagement
+from sionna_tpu_torch.phy.mimo import StreamManagement, lmmse_equalizer
 from sionna_tpu_torch.phy.ofdm import (EPDetector, KBestDetector,
                                        LinearDetector, LMMSEEqualizer,
                                        LMMSEInterpolator, LSChannelEstimator,
@@ -239,6 +278,10 @@ from sionna_tpu_torch.phy.ofdm import (EPDetector, KBestDetector,
 from sionna_tpu_torch.phy.nr import (PUSCHConfig, PUSCHReceiver,
                                     PUSCHTransmitter, TBDecoder, TBEncoder)
 from sionna_tpu_torch.phy.nr.utils import CodedAWGNChannelNR
+from sionna_tpu_torch.phy.signal import (CustomFilter, Downsampling,
+                                         RaisedCosineFilter,
+                                         RootRaisedCosineFilter, SincFilter,
+                                         Upsampling, empirical_aclr)
 from sionna_tpu_torch.phy.utils import Profiler, ebnodb2no, sim_ber
 from sionna_tpu_torch.sys import PHYAbstraction
 from sionna_tpu_torch.tools import ldpc_tune, sass_ops
@@ -413,6 +456,44 @@ PUSCH_SEED = 23
 # (tools/pusch_bler.py --blocks 10240 --batch 256, seeds 0 and 1 pooled):
 # (block errors, blocks)
 PUSCH_JAX = (2292, 20480)
+
+# Phases 26-28. The flat-fading MIMO link and the BSC link of
+# tools/flat_fading_bler.py (4 x 16 antennas, Kronecker correlation 0.4
+# at the transmitter and 0.9 at the receiver, 16-QAM, k=512, n=1024: BG2
+# Z=64, BP-20 on K1): batch 4096 (16,384 codewords) and 16,384
+# codewords per MC iteration, at the points of the bands
+FLAT = dict(num_tx=4, num_rx=16, k=512, n=1024, nbps=4, ebno_db=3.5,
+            batch=4096, mc_iter=8)
+FLAT_BSC = dict(pb=0.085, batch=16384, mc_iter=8)
+FLAT_SEED = 26
+# Their BLER from the JAX package's run of the same links on the CPU
+# (tools/flat_fading_bler.py, seeds 0 and 1 pooled: mimo at --blocks 65536
+# --batch 1024, bsc at --blocks 65536 --batch 4096): (block errors, blocks)
+FLAT_JAX = {"mimo": (47721, 131072), "bsc": (36161, 131072)}
+# The blocks on the card against the same blocks on the CPU, of the
+# largest magnitude: f32 products summed in other orders
+FLAT_CPU_RTOL = 1e-5
+# Pulse shaping (docs/tutorials/10_pulse_shaping.md): the noiseless
+# cascade's error floor, the ISI of an RRC truncated to 32 symbols (6.2e-3
+# on the port on the CPU), and the empirical ACLR of the shaped
+# waveform against the filter's (0.0416 against 0.0395 there)
+PULSE = dict(sps=4, span=32, beta=0.22, batch=64, num_symbols=1024)
+PULSE_ISI_MAX = 1e-2
+PULSE_ACLR_RTOL = 0.1
+PULSE_CPU_RTOL = 1e-5
+# The optical link (docs/tutorials/09_optical_channel.md): 10 spans of
+# 80 km (200 SSFM steps each) and a transparent EDFA of noise figure 5 on
+# a [2, 1024] waveform; noise-free, the card against the CPU per
+# precision after one span and after the link; the adaptive schedule over
+# 10 km of a pulse. Over the link, cuFFT's and pocketfft's f32 roundings
+# add up (about 3e-5 per span): the link's single-precision bound is held
+# an order below single precision's own error, the f32 link against the
+# f64 one, which the phase prints (about 4e-4 after one span)
+OPTICAL = dict(spans=10, n_ssfm=200, length=80.0, alpha=0.046, samples=1024,
+               f=5.0)
+OPTICAL_RTOL = {"single": 1e-4, "double": 1e-9}
+OPTICAL_LINK_RTOL = {"single": 1e-3, "double": 1e-9}
+OPTICAL_ADAPTIVE = dict(length=10.0, phase_inc=1e-3)
 
 
 def rate_band(errors, blocks, n_port):
@@ -2293,6 +2374,411 @@ def nr_phases(card, results, per_update):
     results.put({})
 
 
+class FlatLink:
+    """Phase 26: ``tools/flat_fading_bler.py``'s two links on the port's
+    public blocks, one ``LDPC5GDecoder`` (k=512, n=1024: BG2 Z=64;
+    boxplus BP-20, hard decisions; the lifted engine, K1) for both. A call
+    (the sim_ber model) is one MC iteration of the MIMO link: 4 x 16
+    antennas over ``FlatFadingChannel`` with Kronecker correlation and
+    AWGN, LMMSE, APP demapping; ``bsc`` one of the BSC link. ``calls``
+    counts decoder calls; ``devices`` collects every tensor's device."""
+
+    def __init__(self, dev):
+        c = FLAT
+        self.dev, self.calls, self.devices = dev, 0, set()
+        self.src = BinarySource(device=dev)
+        self.enc = LDPC5GEncoder(c["k"], c["n"], device=dev)
+        self.dec = LDPC5GDecoder(self.enc, hard_out=True, device=dev)
+        self.mapper = Mapper("qam", c["nbps"], device=dev)
+        self.demapper = Demapper("app", "qam", c["nbps"], device=dev)
+        corr = KroneckerModel(exp_corr_mat(0.4, c["num_tx"], device=dev),
+                              exp_corr_mat(0.9, c["num_rx"], device=dev))
+        self.channel = FlatFadingChannel(c["num_tx"], c["num_rx"],
+                                         spatial_corr=corr,
+                                         return_channel=True, device=dev)
+        self.bsc_channel = BinarySymmetricChannel(return_llrs=True,
+                                                  device=dev)
+        self.eye = torch.eye(c["num_rx"], device=dev)
+        self.dec.register_forward_hook(self._count)
+
+    def _count(self, module, args, out):
+        self.calls += 1
+        self.devices.update(str(t.device) for t in (*args, out))
+
+    def stages(self, batch_size, ebno_db, mark=lambda name: None):
+        """One MC iteration of the MIMO link, ``mark``ing the end of each
+        stage: (info bits, decisions) [batch, 4, 512]."""
+        c = FLAT
+        b = self.src([batch_size, c["num_tx"], c["k"]])
+        x = self.mapper(self.enc(b))
+        mark("source, encode, map")
+        shape = x.shape
+        no = ebnodb2no(ebno_db, c["nbps"], c["k"] / c["n"]).to(self.dev) \
+            * c["num_rx"] ** 0.5
+        y, h = self.channel(x.reshape(-1, c["num_tx"]), no)
+        mark("flat fading (Kronecker), AWGN")
+        x_hat, no_eff = lmmse_equalizer(y, h,
+                                        (no * self.eye).to(torch.complex64))
+        mark("LMMSE equalizer")
+        llr = self.demapper(x_hat.reshape(shape), no_eff.reshape(shape))
+        mark("APP demap")
+        b_hat = self.dec(llr)
+        mark("K1: LDPC5GDecoder (BP-20)")
+        self.devices.update(str(t.device)
+                            for t in (b, x, no, y, h, x_hat, llr, b_hat))
+        return b, b_hat
+
+    def __call__(self, batch_size, ebno_db):
+        return self.stages(int(batch_size), ebno_db)
+
+    def bsc(self, batch_size, pb):
+        """One MC iteration of the BSC link at flip probability ``pb``."""
+        b = self.src([int(batch_size), FLAT["k"]])
+        llr = self.bsc_channel(self.enc(b), pb)
+        b_hat = self.dec(llr)
+        self.devices.update(str(t.device) for t in (b, llr, b_hat))
+        return b, b_hat
+
+
+def check_against_cpu(what, card, cpu, bound):
+    """Raises unless ``card`` (on the card) and ``cpu`` agree within
+    ``bound`` of the largest magnitude of ``cpu``; returns the error."""
+    if card.device.type != "cuda":
+        raise AssertionError(f"{what}: on {card.device}")
+    err = float((card.cpu() - cpu).abs().max() / cpu.abs().max())
+    if not err <= bound:
+        raise AssertionError(f"{what}: card against CPU {err:.3e} > "
+                             f"{bound:.0e}")
+    return err
+
+
+def run_flat_links(dev, card, per_update):
+    """Phase 26: both links through sim_ber, every count at 0 just before
+    and read just after: BLER inside the JAX band, one K1 launch per
+    decoder call, every tensor on the card; the MIMO link's stages,
+    iteration time, Mbit/s and peak memory; PerColumnModel and Rayleigh
+    block fading against themselves on the CPU, CIRDataset into
+    OFDMChannel on the card; K1 alone at the links' code and batch,
+    held identical to its plain decode and timed in turns with it,
+    beside its bound (``per_update`` as ``lifted_bound`` takes it)."""
+    c, cb = FLAT, FLAT_BSC
+    link = FlatLink(dev)
+    for name, model, point, batch, mc_iter, per_call in (
+            ("mimo", link, c["ebno_db"], c["batch"], c["mc_iter"],
+             c["num_tx"]),
+            ("bsc", link.bsc, cb["pb"], cb["batch"], cb["mc_iter"], 1)):
+        link.calls, link.devices = 0, set()
+        reset_launches()
+        t0 = time.perf_counter()
+        ber, bler = sim_ber(model, [point], batch_size=batch,
+                            max_mc_iter=mc_iter, early_stop=False,
+                            verbose=False)
+        torch.cuda.synchronize()
+        launches = {kern.name: dict(kern.variant_launches)
+                    for kern in KERNELS}
+        bler = float(bler[0])
+        lo, hi = rate_band(*FLAT_JAX[name], batch * per_call * mc_iter)
+        print(f"    {name} at {point}: BLER {bler:.5f} over "
+              f"{batch * per_call * mc_iter} codewords (band [{lo:.4f}, "
+              f"{hi:.4f}]), BER {float(ber[0]):.3e}, {link.calls} decoder "
+              f"calls, launches {launches}, devices {sorted(link.devices)}, "
+              f"{time.perf_counter() - t0:.2f} s")
+        if not lo <= bler <= hi:
+            raise AssertionError(f"[26] {name}: BLER {bler} outside "
+                                 f"[{lo}, {hi}]")
+        if link.devices != {str(dev)}:
+            raise AssertionError(f"[26] {name}: tensors on {link.devices}")
+        if launches != {LIFTED_BP_KERNEL.name: {"f32": link.calls},
+                        LAYERED_BP_KERNEL.name: {}} or link.calls != mc_iter:
+            raise AssertionError(f"[26] {name}: {launches} for {link.calls} "
+                                 "decoder calls")
+
+    batch, ebno_db = c["batch"], c["ebno_db"]
+    with torch.no_grad():
+        link(batch, ebno_db)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        it_ms = median_ms(lambda: link(batch, ebno_db), 5)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        stages = marked_stage_ms(
+            lambda mark: link.stages(batch, ebno_db, mark), 5)
+    total = sum(stages.values())
+    for stage, t in stages.items():
+        print(f"      {stage:32s} {t:9.3f} ms  {100 * t / total:5.1f} %")
+    print(f"      {'sum of stages':32s} {total:9.3f} ms")
+    bits = batch * c["num_tx"] * c["k"]
+    print(f"    flat-fading MIMO link: {bits / it_ms / 1e3:.3f} Mbit/s of "
+          f"info bits ({it_ms:.3f} ms per MC iteration, median of 5, "
+          f"batch {batch} x {c['num_tx']} codewords, {ebno_db} dB), peak "
+          f"memory {peak:.2f} GiB on {card}")
+
+    # the correlation and Rayleigh models on the card against the CPU
+    gen = torch.Generator(device=dev).manual_seed(FLAT_SEED)
+    h = GenerateFlatFadingChannel(c["num_tx"], c["num_rx"], device=dev)(
+        batch, generator=gen)
+    r = exp_corr_mat(torch.tensor([0.2, 0.5, 0.8, 0.95]), c["num_rx"],
+                     device=dev)
+    err = check_against_cpu(
+        "[26] PerColumnModel", PerColumnModel(r)(h),
+        PerColumnModel(r.cpu())(h.cpu()), FLAT_CPU_RTOL)
+    a, tau = RayleighBlockFading(1, c["num_rx"], 1, c["num_tx"],
+                                 device=dev)(256, 14, generator=gen)
+    if not bool((a == a[..., :1]).all()) or tau.device != dev:
+        raise AssertionError("[26] Rayleigh block fading: not one draw "
+                             "per block on the card")
+    freqs = subcarrier_frequencies(64, 30e3, device=dev)
+    err_ray = check_against_cpu(
+        "[26] Rayleigh CIR -> OFDM", cir_to_ofdm_channel(freqs, a, tau),
+        cir_to_ofdm_channel(freqs.cpu(), a.cpu(), tau.cpu()), FLAT_CPU_RTOL)
+    a_np, tau_np = a.cpu().numpy(), tau.cpu().numpy()
+
+    def examples():
+        yield from zip(a_np, tau_np)
+
+    rg = ResourceGrid(num_ofdm_symbols=14, fft_size=64,
+                      subcarrier_spacing=30e3, num_tx=1,
+                      num_streams_per_tx=c["num_tx"])
+    x = QAMSource(4, device=dev)([256, 1, c["num_tx"], 14, 64],
+                                 generator=gen)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        dataset = CIRDataset(examples, 256, 1, c["num_rx"], 1, c["num_tx"],
+                             1, 14, device=d)
+        outs.append(OFDMChannel(dataset, rg, add_awgn=False,
+                                return_channel=True, device=d)(x.to(d)))
+    err_cir = max(check_against_cpu(f"[26] CIRDataset -> OFDMChannel {w}",
+                                    on, cpu, FLAT_CPU_RTOL)
+                  for w, on, cpu in zip(("y", "h"), *outs))
+    print(f"    against the CPU (of the largest value): PerColumnModel "
+          f"{err:.2e}, Rayleigh block fading -> OFDM {err_ray:.2e}, "
+          f"CIRDataset of its draws -> OFDMChannel {err_cir:.2e} "
+          f"(bound {FLAT_CPU_RTOL:.0e}), all on {dev}")
+
+    # K1 alone at the links' code and batch, after the counts were read
+    dec, it, n_cw = link.dec, link.dec.num_iter, FLAT_BSC["batch"]
+    llr = dec.recover_llrs(noisy_llrs(link.enc, n_cw, 1.5, gen)[1])
+    ker, plain = variant_calls("ldpc_lifted_bp", dec.lifted)
+    shape = (f"BG2 Z={dec.lifted._z}, n={c['n']} x {n_cw}, BP-{it} "
+             f"boxplus")
+    err = assert_identical(ker(llr, it), plain(llr, it), f"[26] {shape}")
+    (k_a, k_b), (p_a, p_b) = in_turns(lambda: ker(llr, it),
+                                      lambda: plain(llr, it), 10, 2)
+    bound = lifted_bound(dec.lifted, n_cw, it, per_update)
+    print(f"    ldpc_lifted_bp, {shape}: max|kernel-plain| {err:.3e}; kernel "
+          f"{k_a:.3f} / {k_b:.3f} ms, plain {p_a:.3f} / {p_b:.3f} ms per "
+          f"call on {card}; bound {bound[0]:.3f} ms ({bound[1]}), "
+          f"{100 * bound[0] / min(k_a, k_b):.1f} % of it; FP32 issue "
+          f"{bound[2]:.3f} ms")
+    print(f"      {launch_line('ldpc_lifted_bp', dec.lifted, n_cw)}")
+
+
+PULSE_FILTERS = {
+    "RaisedCosineFilter": lambda c, **kw: RaisedCosineFilter(
+        c["span"], c["sps"], c["beta"], **kw),
+    "RootRaisedCosineFilter": lambda c, **kw: RootRaisedCosineFilter(
+        c["span"], c["sps"], c["beta"], **kw),
+    "SincFilter": lambda c, **kw: SincFilter(c["span"], c["sps"], **kw),
+    "CustomFilter": lambda c, **kw: CustomFilter(
+        c["sps"], np.hanning(c["span"] * c["sps"] + 1), **kw),
+}
+
+
+def run_pulse_shaping(dev, card):
+    """Phase 27: the pulse-shaping tutorial's chain on the card (its
+    symbols back within the truncated RRC's ISI floor, its ACLR near the
+    filter's), every filter class with and without each window against
+    itself on the CPU, and ms per call of each stage."""
+    c = PULSE
+    rrc = RootRaisedCosineFilter(c["span"], c["sps"], c["beta"], device=dev)
+    up = Upsampling(c["sps"], device=dev)
+    down = Downsampling(c["sps"], offset=c["span"] * c["sps"], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(FLAT_SEED + 1)
+    x = QAMSource(4, device=dev)([c["batch"], c["num_symbols"]],
+                                 generator=gen)
+    with torch.no_grad():
+        x_up = up(x)
+        x_rrc = rrc(x_up)
+        y = rrc(x_rrc, padding="full", conjugate=True)
+        x_hat = down(y)[..., :c["num_symbols"]]
+    on_card("[27]", [x, x_up, x_rrc, y, x_hat], dev)
+    isi = float((x_hat - x).abs().max())
+    aclr = float(empirical_aclr(x_rrc, oversampling=c["sps"]))
+    print(f"    RRC span {c['span']}, {c['sps']} samples per symbol, beta "
+          f"{c['beta']}, 16-QAM [{c['batch']}, {c['num_symbols']}]: max "
+          f"|x_hat - x| {isi:.3e} (ISI floor {PULSE_ISI_MAX:.0e}); ACLR "
+          f"empirical {aclr:.5f}, filter {rrc.aclr:.5f} (within "
+          f"{PULSE_ACLR_RTOL:.0%})")
+    if not isi <= PULSE_ISI_MAX:
+        raise AssertionError(f"[27] cascade error {isi} > {PULSE_ISI_MAX}")
+    if not abs(aclr - rrc.aclr) <= PULSE_ACLR_RTOL * rrc.aclr:
+        raise AssertionError(f"[27] ACLR {aclr} against {rrc.aclr}")
+    worst = 0.0
+    paddings = ("full", "same", "valid")
+    with torch.no_grad():
+        for i, (name, make) in enumerate(PULSE_FILTERS.items()):
+            for j, window in enumerate((None, "hann", "hamming",
+                                        "blackman")):
+                kw = dict(padding=paddings[(i + j) % 3], conjugate=bool(j % 2))
+                card_f = make(c, window=window, device=dev)
+                cpu_f = make(c, window=window, device="cpu")
+                worst = max(worst, check_against_cpu(
+                    f"[27] {name}, window {window}, {kw}",
+                    card_f(x_up, **kw), cpu_f(x_up.cpu(), **kw),
+                    PULSE_CPU_RTOL))
+        times = {"upsample": median_ms(lambda: up(x), 10),
+                 "RRC (full)": median_ms(lambda: rrc(x_up), 10),
+                 "matched RRC (full)": median_ms(
+                     lambda: rrc(x_rrc, conjugate=True), 10),
+                 "downsample": median_ms(lambda: down(y), 10)}
+    print(f"    {len(PULSE_FILTERS)} filter classes x 4 windows against the "
+          f"CPU: largest error {worst:.2e} of the largest value (bound "
+          f"{PULSE_CPU_RTOL:.0e})")
+    print("    ms per call (median of 10, CUDA events): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in times.items()) + f" on {card}")
+
+
+def optical_link(dev, precision, manakov, f, noise_free=False):
+    """One span of the optical tutorial (SSFM over 80 km in 200 steps)
+    and its EDFA: transparent at noise figure ``f``, or, ``noise_free``,
+    g = 1 (no noise anywhere)."""
+    c = OPTICAL
+    span = SSFM(alpha=c["alpha"], beta_2=-21.67, gamma=1.27,
+                length=c["length"], n_ssfm=c["n_ssfm"], sample_duration=1.0,
+                t_norm=1e-12, with_manakov=manakov, precision=precision,
+                device=dev)
+    g = 1.0 if noise_free else float(np.exp(c["alpha"] * c["length"]))
+    amp = EDFA(g=g, f=f, dt=1e-12, with_dual_polarization=manakov,
+               precision=precision, device=dev)
+    return span, amp
+
+
+def run_spans(x, span, amp):
+    for _ in range(OPTICAL["spans"]):
+        x = amp(span(x))
+    return x
+
+
+def run_optical(dev, card):
+    """Phase 28: the optical tutorial's 10-span link on a [2, 1024]
+    waveform, as written and with ``with_manakov=True``: noise-free, the
+    card against the CPU in single and double precision; with noise, the
+    added power against the analytic ASE power; the adaptive schedule's
+    step count on the card and the CPU; ms and launches per span."""
+    c = OPTICAL
+    gen = torch.Generator(device=dev).manual_seed(FLAT_SEED + 2)
+    shape = (2, c["samples"])
+    x64 = torch.complex(torch.randn(shape, generator=gen, device=dev,
+                                    dtype=torch.float64),
+                        torch.randn(shape, generator=gen, device=dev,
+                                    dtype=torch.float64)) * (0.5e-3) ** 0.5
+    timing = {}
+    with torch.no_grad():
+        for manakov in (False, True):
+            what = "Manakov" if manakov else "as written"
+            errs, cpu = {}, torch.device("cpu")
+            for precision, x in (("double", x64),
+                                 ("single", x64.to(torch.complex64))):
+                links = [optical_link(d, precision, manakov, 5.0,
+                                      noise_free=True) for d in (dev, cpu)]
+                ys = [x.to(d) for d in (dev, cpu)]
+                for i in range(c["spans"]):
+                    ys = [amp(span(y)) for y, (span, amp) in zip(ys, links)]
+                    if i == 0:
+                        errs[precision, 1] = check_against_cpu(
+                            f"[28] {what}, noise-free, {precision}, one "
+                            f"span", *ys, OPTICAL_RTOL[precision])
+                errs[precision] = check_against_cpu(
+                    f"[28] {what}, noise-free, {precision}, "
+                    f"{c['spans']} spans", *ys,
+                    OPTICAL_LINK_RTOL[precision])
+                if precision == "double":
+                    exact = ys[0]
+            # single precision's own error: the f32 link against the f64
+            f32_err = float((ys[0].to(exact.dtype) - exact).abs().max()
+                            / exact.abs().max())
+            print(f"    {what}, noise-free, card against CPU: one span "
+                  f"{errs['single', 1]:.2e} (single, bound "
+                  f"{OPTICAL_RTOL['single']:.0e}), {errs['double', 1]:.2e} "
+                  f"(double, {OPTICAL_RTOL['double']:.0e}); {c['spans']} "
+                  f"spans {errs['single']:.2e} (single, bound "
+                  f"{OPTICAL_LINK_RTOL['single']:.0e}; the f32 link "
+                  f"against the f64 link on the card {f32_err:.2e}), "
+                  f"{errs['double']:.2e} (double, "
+                  f"{OPTICAL_LINK_RTOL['double']:.0e})")
+            x = x64.to(torch.complex64)
+            span, amp = optical_link(dev, "single", manakov, c["f"])
+            clean = optical_link(dev, "single", manakov, 0.0)
+            noise = run_spans(x, span, amp) - run_spans(x, *clean)
+            power = float((noise.abs() ** 2).mean())
+            want = c["spans"] * amp._p_n_ase
+            half = 5 * want / noise.numel() ** 0.5
+            print(f"    {what}: ASE power at the output {power:.4e} W, "
+                  f"analytic {want:.4e} W +- {half:.1e}")
+            if not abs(power - want) <= half:
+                raise AssertionError(f"[28] {what}: noise power {power}, "
+                                     f"analytic {want} +- {half}")
+            timing[what] = (span, amp, x)
+
+        # the adaptive schedule on a smooth pulse: the same steps
+        t = torch.arange(c["samples"], dtype=torch.float64) - c["samples"] / 2
+        pulse = (0.02 ** 0.5 * torch.exp(-t ** 2 / (2 * 12.0 ** 2)))
+        pulse = torch.stack([pulse, 0.8 * pulse]).to(torch.complex64)
+        steps = []
+        for d in (dev, torch.device("cpu")):
+            fiber = SSFM(length=OPTICAL_ADAPTIVE["length"], n_ssfm="adaptive",
+                         phase_inc=OPTICAL_ADAPTIVE["phase_inc"], device=d)
+            out = fiber(pulse.to(d))
+            steps.append(fiber.steps)
+            if d == dev:
+                card_out = out
+        err = check_against_cpu("[28] adaptive SSFM", card_out, out,
+                                OPTICAL_RTOL["single"])
+        print(f"    adaptive SSFM on a 20 mW pulse over "
+              f"{OPTICAL_ADAPTIVE['length']} km: {steps[0]} steps on the "
+              f"card, {steps[1]} on the CPU (one host read per step), "
+              f"output against the CPU {err:.2e}")
+        if steps[0] != steps[1]:
+            raise AssertionError(f"[28] adaptive steps {steps}")
+
+        # both forms timed before either is profiled: after a profiler
+        # window every launch costs more
+        ms = {what: (median_ms(lambda: span(x), 5),
+                     median_ms(lambda: amp(x), 5))
+              for what, (span, amp, x) in timing.items()}
+        for what, (span, amp, x) in timing.items():
+            dev_n, host_n, busy = launches_per_call(lambda: span(x))
+            print(f"    {what}: {ms[what][0]:.3f} ms per span (SSFM, "
+                  f"{c['n_ssfm']} steps) + {ms[what][1]:.4f} ms EDFA, median "
+                  f"of 5 (CUDA events) on {card}; {dev_n} kernels and copies "
+                  f"on the device, {host_n} cudaLaunchKernel per span, "
+                  f"{busy:.3f} ms of device time (torch.profiler)")
+
+
+def flat_phases(card, results, per_update):
+    """Phases 26-28, run in a fresh process by ``main``; ``per_update``
+    as ``lifted_bound`` takes it."""
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config.seed = FLAT_SEED
+    t0 = time.perf_counter()
+    print(f"[26] coded MIMO over correlated flat fading (4 x 16, 16-QAM, "
+          f"BG2 Z=64) and the BSC link through sim_ber, K1, on {card}")
+    run_flat_links(dev, card, per_update)
+    print(f"    phase 26: {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    print(f"[27] pulse shaping (RRC, up/down-sampling, windows) on {card}")
+    run_pulse_shaping(dev, card)
+    print(f"    phase 27: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    print(f"[28] the optical link (10 x SSFM + EDFA) on {card}")
+    run_optical(dev, card)
+    print(f"    phase 28: {time.perf_counter() - t1:.1f} s; phases 26-28: "
+          f"{time.perf_counter() - t0:.1f} s")
+    sys.stdout.flush()
+    results.put({})
+
+
 def run_in_process(target, card, timeout, *args):
     """Runs ``target(card, results, *args)`` in a fresh spawned process and
     returns what it put on the queue ``results`` (None if nothing);
@@ -2609,7 +3095,11 @@ def main():
     # phases 23-25 (the 5G NR PUSCH link), likewise
     t0 = time.perf_counter()
     run_in_process(nr_phases, card, 600, ops_per_update["log1p"])
-    print(f"    phases 23-25 took {time.perf_counter() - t0:.1f} s; the "
+    print(f"    phases 23-25 took {time.perf_counter() - t0:.1f} s")
+    # phases 26-28 (flat fading, pulse shaping, the optical link), likewise
+    t0 = time.perf_counter()
+    run_in_process(flat_phases, card, 600, ops_per_update["log1p"])
+    print(f"    phases 26-28 took {time.perf_counter() - t0:.1f} s; the "
           f"script {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{

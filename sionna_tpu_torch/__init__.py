@@ -7,4 +7,6 @@ kernels live in ``csrc/`` and are built with nvcc on first use (see
 ``_build.py``).
 """
 
+__version__ = "0.1.0"
+
 from . import phy, sys

@@ -59,18 +59,19 @@ class DecoderStatisticsCallback(Object):
         return msg
 
 
-class WeightedBPCallback(nn.Module):
+class WeightedBPCallback(Object, nn.Module):
     """Trainable per-edge message weights for weighted BP: multiplies
     the messages [..., E] by ``weights`` [E], an ``nn.Parameter``
-    (initialised to ``init``), so an optimizer over the decoder's or this
-    module's parameters trains them.
+    (float32, initialised to ``init``), so an optimizer over the
+    decoder's or this module's parameters trains them. An ``Object``
+    with ``precision``, as in the JAX package.
 
     :meth:`with_weights` returns a callback with explicit weights, as
     the JAX package's functional form does.
     """
 
-    def __init__(self, num_edges, init=1.0, device=None):
-        super().__init__()
+    def __init__(self, num_edges, init=1.0, precision=None, device=None):
+        super().__init__(precision=precision)
         self.weights = nn.Parameter(torch.full(
             (int(num_edges),), float(init), dtype=torch.float32,
             device=config.device if device is None else device))

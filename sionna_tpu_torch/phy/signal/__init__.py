@@ -1,5 +1,9 @@
-"""Signal utilities (counterpart of ``sionna_tpu.phy.signal``; the port
-has ``utils.py``; the filters, windows and up/down-sampling follow,
-ROADMAP.md queue 1 item 17)."""
+"""Signal processing (counterpart of ``sionna_tpu.phy.signal``)."""
 
 from .utils import convolve, fft, ifft, empirical_psd, empirical_aclr
+from .window import (Window, CustomWindow, HannWindow, HammingWindow,
+                     BlackmanWindow)
+from .filter import (Filter, RaisedCosineFilter, RootRaisedCosineFilter,
+                     SincFilter, CustomFilter)
+from .upsampling import Upsampling
+from .downsampling import Downsampling

@@ -27,6 +27,12 @@ def compute_ber(b, b_hat, precision="double"):
                       .to(rdtype))
 
 
+def compute_ser(s, s_hat, precision="double"):
+    """Symbol error rate between ``s`` and ``s_hat``: the share of
+    differing entries, as ``compute_ber`` counts bits."""
+    return compute_ber(s, s_hat, precision)
+
+
 def compute_bler(b, b_hat, precision="double"):
     """Block error rate; the last axis of ``b`` is the block dim."""
     rdtype = dtypes[precision]["torch"]["rdtype"]

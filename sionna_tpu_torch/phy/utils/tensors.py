@@ -3,6 +3,8 @@
 
 import torch
 
+from ..config import config
+
 
 def expand_to_rank(tensor, target_rank, axis=-1):
     """Inserts as many size-one axes as needed at ``axis`` so that the
@@ -60,6 +62,20 @@ def split_dim(tensor, shape, axis):
     return tensor.reshape(s[:axis] + tuple(shape) + s[axis + 1:])
 
 
+def diag_part_axis(tensor, axis=0):
+    """Diagonal over the axes ``axis`` and ``axis+1``, appended as the
+    last axis."""
+    tensor = torch.as_tensor(tensor)
+    if axis < 0:
+        axis += tensor.dim()
+    return torch.diagonal(tensor, dim1=axis, dim2=axis + 1)
+
+
+def matrix_diag_part(tensor):
+    """Diagonal of the last two axes."""
+    return torch.diagonal(torch.as_tensor(tensor), dim1=-2, dim2=-1)
+
+
 def flatten_multi_index(indices, shape):
     """Converts multi-dimensional indices (the last axis holds the
     coordinates) into flat indices of a tensor of shape ``shape``."""
@@ -89,6 +105,29 @@ def tensor_values_are_in_set(tensor, admissible_set):
     admissible = torch.as_tensor(admissible_set, device=tensor.device
                                  ).reshape(-1)
     return torch.all(torch.any(tensor[..., None] == admissible, dim=-1))
+
+
+def random_tensor_from_values(values, shape, dtype=None, generator=None):
+    """Random tensor of ``shape`` whose entries are drawn uniformly from
+    ``values``.
+
+    It lies on the generator's device when one is given, else on that of
+    ``values`` when it is a tensor, else on ``config.device``; the draw
+    comes from ``generator``, else from ``config.generator`` of that
+    device.
+    """
+    if generator is not None:
+        device = generator.device
+    elif isinstance(values, torch.Tensor):
+        device = values.device
+    else:
+        device = config.device
+    values = torch.as_tensor(values, dtype=dtype, device=device).reshape(-1)
+    if generator is None:
+        generator = config.generator(device)
+    idx = torch.randint(0, values.shape[0], tuple(shape),
+                        generator=generator, device=device)
+    return values[idx]
 
 
 def enumerate_indices(bounds, device=None):

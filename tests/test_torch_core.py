@@ -1,7 +1,10 @@
 """Core of the PyTorch port against the JAX package: precision and dtypes,
 the Block casting contract, ebnodb2no, hard decisions and the error
-metrics, and the rule that the port never imports JAX."""
+metrics, the tensor utilities, the rule that the port never imports JAX,
+and that it has every public name of the JAX package's subpackages."""
 
+import importlib
+import pkgutil
 import subprocess
 import sys
 from pathlib import Path
@@ -136,6 +139,32 @@ def test_blocks_take_config_device(port_config):
     assert {b.device.type for b in dec.lifted.buffers()} == {"cpu"}
     a, tau = TDL("A", 100e-9, 3.5e9)(2, 3, 1e6)
     assert a.device.type == tau.device.type == "cpu"
+    # the blocks that draw or make tensors from nothing
+    from sionna_tpu_torch.phy.channel import (CIRDataset, FlatFadingChannel,
+                                              GenerateFlatFadingChannel,
+                                              KroneckerModel,
+                                              RayleighBlockFading)
+    from sionna_tpu_torch.phy.channel.optical import EDFA, SSFM
+    from sionna_tpu_torch.phy.signal import RootRaisedCosineFilter
+    assert GenerateFlatFadingChannel(2, 4)(3).device.type == "cpu"
+    y, h = FlatFadingChannel(2, 4, return_channel=True)(
+        torch.ones(3, 2, dtype=torch.complex64), 0.1)
+    assert y.device.type == h.device.type == "cpu"
+    a, tau = RayleighBlockFading(1, 2, 1, 2)(2, 3)
+    assert a.device.type == tau.device.type == "cpu"
+    a, tau = CIRDataset(lambda: iter([(np.ones((1, 1, 1, 1, 1, 1)),
+                                       np.zeros((1, 1, 1)))]),
+                        2, 1, 1, 1, 1, 1, 1)()
+    assert a.device.type == tau.device.type == "cpu"
+    x = torch.ones(2, 16, dtype=torch.complex64)
+    assert EDFA()(x).device.type == "cpu"
+    assert SSFM(with_amplification=True, n_ssfm=2)(x).device.type == "cpu"
+    port_config.device = "meta"
+    assert RootRaisedCosineFilter(4, 4, 0.2).coefficients.device.type \
+        == "meta"
+    assert KroneckerModel(None, np.eye(2))._r_rx_sqrt.device.type == "meta"
+    assert CIRDataset(None, 1, 1, 1, 1, 1, 1, 1)._device.type == "meta"
+    assert RayleighBlockFading(1, 1, 1, 1)._device.type == "meta"
 
 
 def _blocks_without_device():
@@ -148,8 +177,15 @@ def _blocks_without_device():
     from sionna_tpu_torch.phy.fec.linear import LinearEncoder, OSDecoder
     from sionna_tpu_torch.phy.fec.utils import load_parity_check_examples
     from sionna_tpu_torch.phy.ofdm import ResourceGrid, ResourceGridMapper
+    from sionna_tpu_torch.phy.channel import FlatFadingChannel
+    from sionna_tpu_torch.phy.signal import (CustomWindow,
+                                             RootRaisedCosineFilter)
     pcm = load_parity_check_examples(0)[0]
     return {
+        "RootRaisedCosineFilter": lambda: RootRaisedCosineFilter(
+            4, 4, 0.2, window="hann"),
+        "CustomWindow": lambda: CustomWindow(np.ones(8)),
+        "FlatFadingChannel": lambda: FlatFadingChannel(2, 4),
         "LinearEncoder": lambda: LinearEncoder(pcm, is_pcm=True),
         "OSDecoder": lambda: OSDecoder(pcm, t=1, is_pcm=True),
         "Mapper": lambda: Mapper("qam", 4),
@@ -168,7 +204,9 @@ def _blocks_without_device():
 @pytest.mark.parametrize("name", ["LinearEncoder", "OSDecoder", "Mapper",
                                   "Demapper", "AWGN", "BinarySource",
                                   "RowColumnInterleaver", "LDPC5GEncoder",
-                                  "LDPCBPDecoder", "ResourceGridMapper"])
+                                  "LDPCBPDecoder", "ResourceGridMapper",
+                                  "RootRaisedCosineFilter", "CustomWindow",
+                                  "FlatFadingChannel"])
 def test_block_tables_take_config_device(port_config, name):
     """Every buffer and parameter of a block built with no ``device``
     lies on ``config.device``, not only its reported device."""
@@ -269,3 +307,143 @@ def test_port_never_imports_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# Public names of the JAX package that the port leaves out, each by the
+# ROADMAP.md entry that says so. Subpackages that only hold data files
+# (the LDPC and polar code tables, the turbo coefficients) are read by
+# path and have no port counterpart.
+PORT_EXCLUDES = {
+    "sionna_tpu": {"rt"},  # queue 1 item 21
+    "sionna_tpu.phy.utils": {
+        "PlotBER", "plot_ber", "plotting",  # item 22: plotting
+        "init_multihost",  # item 22: multi-GPU sim_ber
+        "put_complex",  # "Leave out": a TPU transfer workaround
+    },
+}
+
+
+def _jax_subpackages():
+    """(subpackages, data packages) of sionna_tpu, rt (item 21) left
+    out; a data package has an ``__init__`` without code and no
+    module."""
+    import sionna_tpu
+    names, data = ["sionna_tpu"], set()
+    for m in pkgutil.walk_packages(sionna_tpu.__path__, "sionna_tpu."):
+        if not m.ispkg or m.name.startswith("sionna_tpu.rt"):
+            continue
+        mod = importlib.import_module(m.name)
+        if any(True for _ in pkgutil.iter_modules(mod.__path__)) \
+                or any(not n.startswith("_") for n in dir(mod)):
+            names.append(m.name)
+        else:
+            data.add(m.name)
+    return names, data
+
+
+def test_port_has_every_public_name_of_the_jax_package():
+    """Every public name of each JAX subpackage (all but rt) exists in
+    its port counterpart, but for PORT_EXCLUDES."""
+    missing = {}
+    names, data = _jax_subpackages()
+    for name in names:
+        jmod = importlib.import_module(name)
+        tmod = importlib.import_module(
+            name.replace("sionna_tpu", "sionna_tpu_torch", 1))
+        public = {n for n in dir(jmod) if not n.startswith("_")
+                  and f"{name}.{n}" not in data}
+        lacking = sorted(public - PORT_EXCLUDES.get(name, set())
+                         - set(dir(tmod)))
+        if lacking:
+            missing[name] = lacking
+    assert not missing, missing
+    from sionna_tpu import __version__ as jax_version
+    import sionna_tpu_torch
+    import sionna_tpu_torch.phy as tphy
+    import sionna_tpu.phy as jphy
+    assert sionna_tpu_torch.__version__ == jax_version
+    for const in ("SPEED_OF_LIGHT", "BOLTZMANN_CONSTANT", "PI", "H",
+                  "ALPHA_MAX"):
+        assert getattr(tphy, const) == getattr(jphy, const)
+
+
+def test_weighted_bp_callback_is_an_object():
+    from sionna_tpu_torch.phy import Object
+    from sionna_tpu_torch.phy.fec.ldpc import WeightedBPCallback
+    cb = WeightedBPCallback(6, init=0.5, device="cpu")
+    assert isinstance(cb, Object) and isinstance(cb, torch.nn.Module)
+    assert cb.precision == "single" and cb.rdtype == torch.float32
+    assert WeightedBPCallback(6, precision="double").cdtype == \
+        torch.complex128
+    assert [p.shape for p in cb.parameters()] == [(6,)]
+    msg = torch.ones(2, 6)
+    out = cb(msg, 0)
+    out.sum().backward()
+    assert torch.equal(out, torch.full((2, 6), 0.5))
+    assert torch.equal(cb.weights.grad, torch.full((6,), 2.0))
+
+
+def test_compute_ser_matches_jax():
+    rng = np.random.default_rng(1)
+    s = rng.integers(0, 16, (40, 30))
+    s_hat = s.copy()
+    flips = rng.random(s.shape) < 0.07
+    s_hat[flips] = (s_hat[flips] + 3) % 16
+    for precision in ("double", "single"):
+        want = jutils.compute_ser(jnp.asarray(s), jnp.asarray(s_hat),
+                                  precision=precision)
+        got = tutils.compute_ser(torch.as_tensor(s), torch.as_tensor(s_hat),
+                                 precision=precision)
+        assert got.dtype == dtypes[precision]["torch"]["rdtype"]
+        assert float(got) == float(want)
+
+
+def test_diag_parts_match_jax():
+    x = np.random.default_rng(2).normal(size=(3, 4, 4, 5, 5))
+    for axis in (0, 1, 3, -2, -4):
+        if x.shape[axis] != x.shape[axis + 1 if axis >= 0 else axis + 1]:
+            continue
+        want = np.asarray(jutils.diag_part_axis(jnp.asarray(x), axis))
+        got = tutils.diag_part_axis(torch.as_tensor(x), axis).numpy()
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+    c = x + 1j * x[::-1]
+    np.testing.assert_array_equal(
+        tutils.matrix_diag_part(torch.as_tensor(c)).numpy(),
+        np.asarray(jutils.matrix_diag_part(jnp.asarray(c))))
+
+
+def test_random_tensor_from_values_statistics():
+    """Every entry drawn from the set, each value as often as the others
+    (within 5 standard errors), on the device asked for."""
+    values = [-3, 0, 2, 7, 11]
+    g = torch.Generator().manual_seed(4)
+    t = tutils.random_tensor_from_values(values, (200, 300), generator=g)
+    assert t.shape == (200, 300) and t.device.type == "cpu"
+    assert bool(tutils.tensor_values_are_in_set(t, values))
+    n, k = t.numel(), len(values)
+    p = 1 / k
+    for v in values:
+        count = int((t == v).sum())
+        assert abs(count - n * p) <= 5 * np.sqrt(n * p * (1 - p)), (v, count)
+    f = tutils.random_tensor_from_values(torch.tensor([0.5, 1.5]), (10,),
+                                         dtype=torch.float64)
+    assert f.dtype == torch.float64 and set(f.tolist()) <= {0.5, 1.5}
+    a = tutils.random_tensor_from_values(values, (50,),
+                                         generator=torch.Generator()
+                                         .manual_seed(9))
+    b = tutils.random_tensor_from_values(values, (50,),
+                                         generator=torch.Generator()
+                                         .manual_seed(9))
+    assert torch.equal(a, b)
+
+
+def test_inv_cholesky_is_exported_and_matches_jax():
+    rng = np.random.default_rng(3)
+    a = rng.normal(size=(2, 6, 6)) + 1j * rng.normal(size=(2, 6, 6))
+    a = (a @ np.conj(np.swapaxes(a, -1, -2)) + 6 * np.eye(6)).astype(
+        np.complex64)
+    want = np.asarray(jutils.inv_cholesky(jnp.asarray(a)))
+    got = tutils.inv_cholesky(torch.as_tensor(a)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2e-6 * np.abs(want).max())
