@@ -205,6 +205,40 @@ Phases 26-28 run in a process of their own. No kernel is written for
 them: the JAX package's signal and channel blocks are NumPy and XLA
 code; phase 26's decoder runs K1.
 
+29. runs BASELINE config 4's canyon path solve as bench.py:334-360 does
+    (``simple_street_canyon`` at 3.5 GHz, iso V arrays, tx at [-20, 0,
+    10], rx at [20, 5, 1.5], ``PathSolver()`` with no device, depth 3,
+    200,000 rays): ``rt_path_solver_ray_segments_per_s`` (one warm-up,
+    the median of 3 host-synced solves), the peak memory and the host
+    syncs per solve; the valid paths per interaction depth and the total
+    gain against the JAX package's on the CPU (``tools/rt_ref.py``); the
+    same solve by the port on the CPU in float64: the same valid
+    interaction sequences, tau and |a| within bounds; ``Paths.cir``
+    through ``cir_to_ofdm_channel`` on the card; ``trace_functional``'s
+    gradients on the card against the CPU's;
+30. runs bench.py's city (``make_city(10, 10, subdiv=10)``: 100,200
+    triangles, so the clustered acceleration structure; tx at [0, 0, 30],
+    rx at [0, 32, 1.5], depth 2, 100,000 rays):
+    ``rt_city100k_ray_segments_per_s``, the peak memory, the accel's ray
+    chunks, skips and dense repair sweeps and the host syncs per solve;
+    the native cluster builder's compile and build times (it fails if the
+    NumPy builder ran); ``nearest_hit_accel`` and
+    ``any_blocking_hit_accel`` on 8,192 of the solve's rays against the
+    dense sweep on the card (t identical, ids equal where t is unique);
+    a cut city (``make_city(3, 3, subdiv=4)``, accelerated) against the
+    JAX package's paths on the CPU;
+31. runs bench.py's radio map (200 x 200 cells of 1 m at height 1.5 on
+    the canyon, depth 2, 100,000 rays, ``RadioMapSolver()``):
+    ``rt_radio_map_cells_per_s``, the peak memory and host syncs; the
+    map's statistics against the JAX package's on the CPU; a coarse map
+    on the card against the port on the CPU; ``output="gain"`` against
+    the paths' reduction for four receivers.
+
+Phases 29-31 run in a process of their own, every tensor of a solve on
+``cuda:0``. No kernel is written for them: the JAX package's ray tracer
+is XLA code with no Pallas kernel (``sionna_tpu/rt/``), so the port's is
+plain torch.
+
 Phases 15 and 16 run in a process of their own; each link is held to
 its BLER band from a JAX run of the same link
 (``tools/fec_links_bler.py``), with every tensor on the card and no
@@ -494,6 +528,149 @@ OPTICAL = dict(spans=10, n_ssfm=200, length=80.0, alpha=0.046, samples=1024,
 OPTICAL_RTOL = {"single": 1e-4, "double": 1e-9}
 OPTICAL_LINK_RTOL = {"single": 1e-3, "double": 1e-9}
 OPTICAL_ADAPTIVE = dict(length=10.0, phase_inc=1e-3)
+
+# Phases 29-31 (BASELINE config 4, the ray tracer, bench.py:332-410): the
+# canyon path solve, the 100k-triangle city and the radio map at bench's
+# widths. RT_JAX: the JAX package's numbers on the CPU
+# (tools/rt_ref.py --part canyon|map|city): valid paths per number of
+# interactions, total gain sum |a|^2; the map's cells above 1e-15, the
+# mean and spread of their gain in dB, the largest gain, and every 97th
+# cell's gain, with the positions in that sample of the cells that a
+# corner path reaches (a reflection where two planes meet: its
+# zero-length segment has no direction, ROADMAP.md "Not faults"); the
+# city cut (make_city(3, 3, subdiv=4), the accelerated path forced)
+RT_CANYON = dict(tx=[-20., 0., 10.], rx=[20., 5., 1.5], max_depth=3,
+                 samples=200_000)
+RT_MAP = dict(cell_size=(1., 1.), size=(200, 200), center=(0., 0., 1.5),
+              max_depth=2, samples=100_000)
+RT_CITY = dict(nx=10, ny=10, subdiv=10, tx=[0., 0., 30.], rx=[0., 32., 1.5],
+               max_depth=2, samples=100_000, check_rays=8192)
+RT_CITY_CUT = dict(nx=3, ny=3, subdiv=4, tx=[-16., -16., 30.],
+                   rx=[-16., 16., 1.5], max_depth=2, samples=20_000)
+RT_JAX_MAP_SAMPLE = [
+    1.82235772e-11, 4.1987195e-11, 1.06643548e-11, 4.40945232e-11,
+    1.18485725e-11, 4.57983373e-11, 1.31851934e-11, 4.69865154e-11,
+    1.46940446e-11, 4.75703157e-11, 1.63968457e-11, 4.74980957e-11,
+    1.83169729e-11, 4.67644985e-11, 2.04791722e-11, 4.54111228e-11,
+    2.29086194e-11, 4.35188136e-11, 2.56296408e-11, 4.1194638e-11,
+    2.86635871e-11, 3.85561305e-11, 3.20253719e-11, 3.57181264e-11,
+    3.57181264e-11, 3.27831581e-11, 4.02976992e-11, 2.95281542e-11,
+    4.40052508e-11, 2.52424869e-11, 4.84705436e-11, 2.28162749e-11,
+    5.29853314e-11, 1.10772891e-10, 5.73537502e-11, 1.00177479e-11,
+    1.13293784e-11, 1.12965618e-11, 6.46038362e-11, 1.27765082e-11,
+    6.69053007e-11, 1.44927742e-11, 6.79895862e-11, 1.6486713e-11,
+    6.77216547e-11, 1.88061771e-11, 6.61022903e-11, 2.15065361e-11,
+    6.32671832e-11, 2.46503651e-11, 5.94535532e-11, 2.83072506e-11,
+    5.49480531e-11, 3.25523011e-11, 5.00364541e-11, 3.74621341e-11,
+    4.49695385e-11, 4.31080692e-11, 3.95523163e-11, 4.95432306e-11,
+    3.3036917e-11, 5.67812151e-11, 2.90390524e-11, 6.47614462e-11,
+    1.44226728e-10, 7.33023156e-11, 1.48172419e-10, 8.20454191e-11,
+    8.58448122e-12, 9.04147104e-11, 9.78251161e-12, 9.76261849e-11,
+    1.12110564e-11, 1.02792316e-10, 1.29449429e-11, 1.05127712e-10,
+    1.50253161e-11, 1.04192224e-10, 1.75341668e-11, 1.00050232e-10,
+    6.04149456e-12, 9.32439681e-11, 2.42751895e-11, 8.46006598e-11,
+    2.87962362e-11, 7.49905832e-11, 3.43348648e-11, 6.51568799e-11,
+    4.11287775e-11, 5.21752502e-11, 4.94574486e-11, 4.42904567e-11,
+    5.96335689e-11, 1.91640009e-10, 7.19767648e-11, 1.96782368e-10,
+    8.67508981e-11, 2.02093495e-10, 1.04031173e-10, 1.35508105e-09,
+    1.23462116e-10, 7.90717491e-12, 1.4389534e-10, 8.86305959e-12,
+    1.63046451e-10, 9.99948041e-12, 1.7822277e-10, 1.13643244e-11,
+    1.84565196e-10, 1.16643873e-11, 1.80758741e-10, 1.45658329e-11,
+    1.68163747e-10, 1.87688181e-11, 1.48471346e-10, 2.23957762e-11,
+    1.25905189e-10, 2.78439494e-11, 1.03390449e-10, 3.29480956e-11,
+    7.78287088e-11, 4.07108722e-11, 6.77766662e-11, 5.09953781e-11,
+    2.74596956e-10, 6.47982848e-11, 2.8101213e-10, 8.35208847e-11,
+    2.03281592e-09, 1.16060085e-10, 2.01888772e-09, 1.43887846e-10,
+    1.99863059e-09, 1.90514826e-10, 3.12101456e-10, 2.56780902e-10,
+    3.21112414e-10, 3.16482063e-10, 3.30148353e-10, 3.79891313e-10,
+    1.52376133e-11, 4.07927053e-10, 1.7344683e-11, 3.84732468e-10,
+    2.25473529e-11, 3.7411434e-09, 2.56885208e-11, 3.063513e-09,
+    2.95422263e-11, 2.38748554e-09, 3.43469801e-11, 1.28918334e-10,
+    4.88914575e-10, 1.02903755e-10, 5.90182403e-10, 4.15036089e-10,
+    7.27471416e-10, 3.38182615e-09, 9.20197918e-10, 3.33919892e-09,
+    1.20200061e-09, 2.8599918e-09, 1.63358016e-09, 1.17050076e-08,
+    2.32812525e-09, 1.03811475e-08, 3.49897888e-09, 2.07397988e-09,
+    5.52958968e-09, 2.23326424e-09, 8.95937102e-09, 2.41171616e-09,
+    1.37300029e-08, 2.61254263e-09, 1.66841385e-08, 2.83964185e-09,
+    1.38307197e-08, 3.45712925e-09, 8.43640535e-09, 3.73557985e-09,
+    4.54114479e-09, 4.05182332e-09, 4.03165012e-09, 7.20600107e-11,
+    6.78405776e-09, 2.79170381e-10, 3.63502579e-08, 2.92263849e-08,
+    2.94130071e-08, 3.34073604e-08, 2.36132607e-08, 3.92968076e-08,
+    1.98256167e-08, 4.71767336e-08, 1.69115655e-08, 5.85923488e-08,
+    1.46144288e-08, 7.62951302e-08, 8.46779624e-09, 1.0639728e-07,
+    7.26089633e-09, 1.64237761e-07, 8.44203907e-09, 2.9088514e-07,
+    9.28032406e-09, 5.64453501e-07, 1.02504707e-08, 7.81638505e-07,
+    1.13819993e-08, 5.00291151e-07, 1.5295802e-08, 2.59246832e-07,
+    1.79218578e-08, 1.50637632e-07, 1.97672012e-08, 1.00032885e-07,
+    2.19875034e-08, 7.29132168e-08, 2.47111931e-08, 5.51770185e-08,
+    2.81303016e-08, 3.0992549e-08, 3.2541621e-08, 2.47245016e-08,
+    3.83401684e-08, 1.96077732e-08, 4.65607108e-08, 1.63012466e-08,
+    1.00374586e-09, 1.3773449e-08, 2.12440399e-09, 1.17957724e-08,
+    2.80036705e-09, 1.0218292e-08, 5.08766673e-09, 5.86221471e-09,
+    9.00109676e-09, 6.31817709e-09, 1.35843408e-08, 2.62450661e-09,
+    1.51153881e-08, 2.71549627e-09, 1.19712844e-08, 3.15501336e-09,
+    7.87176901e-09, 5.17497323e-10, 4.97291008e-09, 2.21066568e-11,
+    3.22201044e-09, 2.70007766e-11, 2.18626406e-09, 3.9417461e-10,
+    1.17969814e-10, 4.96738373e-10, 4.29735525e-10, 6.34547304e-10,
+    3.33738637e-09, 8.21894608e-10, 3.09325698e-09, 1.07773934e-09,
+    2.86898083e-09, 1.42416523e-09, 2.66388156e-09, 1.87989113e-09,
+    2.13449369e-09, 2.44591036e-09, 1.96768002e-09, 3.08325099e-09,
+    1.72599912e-09, 3.20426768e-10, 3.57191193e-10, 3.73820752e-10,
+    3.48461177e-10, 3.86350063e-10, 1.59787444e-11, 3.53842539e-10,
+    1.87573151e-11, 3.09099246e-10, 2.50364902e-11, 2.32111219e-10,
+    2.95725493e-11, 1.77955622e-10, 1.91267644e-11, 1.41693393e-10,
+    3.65317464e-11, 1.02717036e-10, 3.18371718e-11, 7.66573818e-11,
+    4.11819884e-11, 6.39403253e-11, 5.30946988e-11, 2.53770172e-10,
+    6.78869946e-11, 2.54272908e-10, 8.55950796e-11, 1.72777881e-09,
+    1.05799154e-10, 1.63890179e-09, 1.27423669e-10, 1.55486579e-09,
+    1.48519211e-10, 1.23314241e-11, 1.65389508e-10, 1.39805268e-11,
+    1.76399256e-10, 9.76389108e-12, 1.7822277e-10, 1.13643244e-11,
+    1.70028172e-10, 1.21194036e-11, 1.55345167e-10, 1.48323524e-11,
+    1.36803208e-10, 1.82173478e-11, 1.17391041e-10, 2.2346942e-11,
+    9.90789603e-11, 2.73290956e-11, 8.28326296e-11, 3.3249653e-11,
+    6.89343443e-11, 4.0150213e-11, 5.67599683e-11, 4.80029558e-11,
+    4.49212056e-11, 5.66862252e-11, 3.77515103e-11, 6.59582874e-11,
+    1.72301839e-10, 7.54288923e-11, 1.69623079e-10, 8.45345183e-11,
+    1.67068484e-10, 9.25412594e-11, 8.55540725e-12, 9.86241575e-11,
+    8.87187025e-12, 1.02042451e-10, 1.04289372e-11, 1.02362716e-10,
+    1.22902391e-11, 9.96141641e-11, 1.44908261e-11, 9.42786405e-11,
+    1.70454345e-11, 8.71241274e-11, 1.99830118e-11, 7.89799337e-11,
+    2.33219867e-11, 7.05598011e-11, 2.70653951e-11, 6.23797888e-11,
+    3.11953657e-11, 5.47563037e-11, 3.56682461e-11, 4.78470943e-11,
+    4.04092176e-11, 4.12873347e-11, 4.530646e-11, 3.59406602e-11,
+    5.02047154e-11, 2.97038262e-11, 5.55981927e-11, 2.60452666e-11,
+    5.9147541e-11, 1.22457752e-10, 5.71683811e-11, 8.84562822e-12,
+    6.5198888e-11, 1.01455632e-11, 1.21801258e-11, 1.16275834e-11,
+    6.6547122e-11, 1.3293971e-11, 6.52824322e-11, 1.51532675e-11,
+    6.23113575e-11, 1.72093208e-11, 5.95805835e-11, 1.94598539e-11,
+    5.56597754e-11, 2.18951419e-11, 5.13911518e-11, 2.44965003e-11,
+    4.70083625e-11, 2.72349296e-11, 4.26908404e-11, 3.00695094e-11,
+    3.85626427e-11, 3.29453062e-11, 3.46999998e-11, 3.57922546e-11,
+    3.11422381e-11, 3.85235802e-11, 2.76088215e-11, 4.10377843e-11,
+    2.13701348e-11, 4.32232097e-11, 2.09639112e-11, 4.49683311e-11,
+    1.8871708e-11, 4.61743491e-11, 1.06042865e-11, 4.6770296e-11,
+    1.18495266e-11, 4.67243917e-11, 1.32014503e-11, 4.60501151e-11,
+    1.46577212e-11, 4.48035428e-11, 1.62128835e-11, 4.30745647e-11,
+    1.78579356e-11]
+RT_JAX = {
+    "canyon": {"valid_per_depth": [1, 3, 4, 4],
+               "gain": 4.9536726720589286e-08},
+    "map": {"cells": 40000, "live": 40000, "mean_db": -96.77068328857422,
+            "std_db": 11.209969520568848, "max": 7.816385050318786e-07,
+            "sample_stride": 97, "sample_corner": [189, 224],
+            "sample": RT_JAX_MAP_SAMPLE},
+    "city": {"valid_per_depth": [1, 3, 2], "gain": 4.450344093243075e-08},
+}
+# The card (float32 geometry) against the JAX package and the port on the
+# CPU (float64): total gains and the map's largest gain relative, tau
+# relative, |a| of the largest |a| (phases are not compared: a float32
+# path length of 50 m is off by ~3e-6 m, 2e-4 rad at 3.5 GHz), the map's
+# dB statistics absolute, gradients of the largest
+RT_GAIN_RTOL = 1e-4
+RT_TAU_RTOL = 1e-6
+RT_A_RTOL = 1e-4
+RT_MAP_DB_ATOL = 0.01
+RT_GRAD_RTOL = 1e-3
 
 
 def rate_band(errors, blocks, n_port):
@@ -2779,6 +2956,506 @@ def flat_phases(card, results, per_update):
     results.put({})
 
 
+def rt_scene(rt, name_or_scene, tx, rx, frequency=3.5e9):
+    """A scene of the port's ``rt`` with iso V arrays, one tx and one rx
+    (a list of positions gives one rx per position)."""
+    scene = rt.load_scene(name_or_scene, frequency=frequency) \
+        if isinstance(name_or_scene, str) else name_or_scene
+    scene.tx_array = rt.PlanarArray(1, 1, pattern="iso", polarization="V")
+    scene.rx_array = rt.PlanarArray(1, 1, pattern="iso", polarization="V")
+    scene.add(rt.Transmitter("tx", tx))
+    for i, p in enumerate(rx if isinstance(rx[0], list) else [rx]):
+        scene.add(rt.Receiver(f"rx{i}", p))
+    return scene
+
+
+def host_synced_median_s(fn, reps=3):
+    """bench.py's protocol: one warm-up call, then the median seconds of
+    ``reps`` calls, each ending in a host sync."""
+    fn()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return sorted(ts)[len(ts) // 2]
+
+
+def peak_gib(fn):
+    """Peak device memory [GiB] of one call of ``fn``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def paths_per_depth(paths):
+    """Valid paths of the first link per number of interactions."""
+    valid = paths.valid[0, 0].cpu()
+    depth = (paths.interactions >= 0).sum(dim=1).cpu()
+    return [int((valid & (depth == d)).sum())
+            for d in range(int(depth.max()) + 1)]
+
+
+def link_gain(paths):
+    return float((paths.a[0, 0, 0, 0].abs() ** 2).sum())
+
+
+def check_rel(what, got, want, rtol):
+    err = abs(got - want) / abs(want)
+    if not err <= rtol:
+        raise AssertionError(f"{what}: {got} against {want} ({err:.2e} > "
+                             f"{rtol:.0e})")
+    return err
+
+
+def host_syncs(fn):
+    """Host syncs of one call of ``fn``: the warnings of torch.cuda's sync
+    debug mode."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def rt_stage_split(solve):
+    """The solver's stages in one call of ``solve``, by the host clock
+    with a device sync at each stage boundary (so the call is slower than
+    a timed one): ({stage: seconds}, the call's seconds). Stages: setup
+    (``PathSolver._setup``: the geometry to the device, the accel cache's
+    lookup, the devices' positions), materials (the per-triangle material
+    arrays), trace (``geometry.trace``), dedupe (the prefix dedupe around it and the
+    duplicate-path pass), image method (images, points, bases and the
+    Fresnel cascade: the rest of ``_eval_sequences``), transmission
+    (occlusion or the through-blocker products), field
+    (``combine_paths``), gain (the gain reduction), other (the rest: the
+    radio map's cells, the sequences' host read, concatenation)."""
+    import sionna_tpu_torch.rt.geometry as geometry
+    import sionna_tpu_torch.rt.solver as solver_mod
+    acc = {}
+
+    def wrap(owner, name, key, static=False):
+        fn = getattr(owner, name)
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                acc[key] = acc.get(key, 0.) + time.perf_counter() - t0
+
+        setattr(owner, name, staticmethod(timed) if static else timed)
+        return owner, name, staticmethod(fn) if static else fn
+
+    saved = [wrap(solver_mod.PathSolver, "_setup", "setup"),
+             wrap(solver_mod.PathSolver, "_materials", "materials"),
+             wrap(geometry, "trace", "trace"),
+             wrap(solver_mod, "trace_unique", "trace_unique"),
+             wrap(solver_mod.PathSolver, "_deduplicate", "dedupe_paths",
+                  static=True),
+             wrap(solver_mod.PathSolver, "_eval_sequences", "eval"),
+             wrap(solver_mod, "transmission_jones_product", "transmission"),
+             wrap(solver_mod, "transmission_jones_product_accel",
+                  "transmission"),
+             wrap(solver_mod, "any_blocking_hit", "transmission"),
+             wrap(solver_mod, "combine_paths", "field"),
+             wrap(solver_mod, "_gain", "gain")]
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+    stages = {
+        "setup": acc.get("setup", 0.),
+        "materials": acc.get("materials", 0.),
+        "trace": acc.get("trace", 0.),
+        "dedupe": acc.get("trace_unique", 0.) - acc.get("trace", 0.)
+        + acc.get("dedupe_paths", 0.),
+        "image method": acc.get("eval", 0.) - acc.get("transmission", 0.)
+        - acc.get("field", 0.) - acc.get("gain", 0.),
+        "transmission": acc.get("transmission", 0.),
+        "field": acc.get("field", 0.),
+        "gain": acc.get("gain", 0.),
+    }
+    stages["other"] = total - sum(stages.values())
+    return stages, total
+
+
+def print_stage_split(solve):
+    stages, total = rt_stage_split(solve)
+    print(f"    stages of one solve with a device sync at each boundary "
+          f"({total * 1e3:.1f} ms): " + ", ".join(
+              f"{k} {v * 1e3:.1f} ms ({100 * v / total:.1f} %)"
+              for k, v in stages.items()))
+
+
+def device_idle_share(solve):
+    """(idle share, device seconds, host-clock seconds, kernels and copies)
+    of one call of ``solve`` under ``torch.profiler``: the device time
+    sums the device-side events' self times (each kernel and copy once)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        span = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    return 1. - busy / span, busy, span, sum(e.count for e in events)
+
+
+def rt_canyon_phase(dev, card):
+    """Phase 29: bench.py's canyon path solve on the card."""
+    import sionna_tpu_torch.rt as rt
+    from sionna_tpu_torch.phy.channel import cir_to_ofdm_channel
+    c = RT_CANYON
+    scene = rt_scene(rt, "simple_street_canyon", c["tx"], c["rx"])
+    solver = rt.PathSolver()
+    if solver.device != dev:
+        raise AssertionError(f"[29] PathSolver() on {solver.device}")
+    kw = dict(max_depth=c["max_depth"], samples_per_src=c["samples"])
+    out = {}
+
+    def solve():
+        out["paths"] = solver(scene, **kw)
+        out["paths"].cir(out_type="numpy")
+
+    t = host_synced_median_s(solve)
+    paths = out["paths"]
+    on_card("[29] paths", [paths.a, paths.tau, paths.valid, paths.theta_t,
+                           paths.doppler, paths.interactions, paths.types],
+            dev)
+    print(json.dumps({"metric": "rt_path_solver_ray_segments_per_s",
+                      "value": c["samples"] * (c["max_depth"] + 1) / t / 1e6,
+                      "unit": "Mrays/s", "card": card}))
+    print(f"    {t * 1e3:.1f} ms per solve (median of 3, host-synced, "
+          f"warm-up excluded), {paths.num_paths} candidate paths, peak "
+          f"{peak_gib(solve):.2f} GiB, {host_syncs(solve)} host syncs per "
+          f"solve, on {card}")
+    print_stage_split(solve)
+    per_depth, gain = paths_per_depth(paths), link_gain(paths)
+    want = RT_JAX["canyon"]
+    err = check_rel("[29] total gain against JAX", gain, want["gain"],
+                    RT_GAIN_RTOL)
+    print(f"    valid paths per depth {per_depth} (JAX on the CPU "
+          f"{want['valid_per_depth']}), total gain {gain:.6e} (JAX "
+          f"{want['gain']:.6e}, {err:.1e})")
+    if per_depth != want["valid_per_depth"]:
+        raise AssertionError("[29] valid paths per depth differ from JAX's")
+
+    # the same solve by the port on the CPU in float64
+    cpu = rt.PathSolver(device="cpu")(scene, **kw)
+
+    def valid_set(p):
+        inter = p.interactions.cpu().numpy()
+        return {tuple(int(i) for i in inter[k] if i >= 0)
+                for k in np.nonzero(p.valid[0, 0].cpu().numpy())[0]}
+
+    card_set, cpu_set = valid_set(paths), valid_set(cpu)
+    if card_set != cpu_set:
+        print(f"    valid sequences only on the card {card_set - cpu_set}, "
+              f"only on the CPU {cpu_set - card_set}")
+        raise AssertionError("[29] valid sequences differ card/CPU")
+
+    def by_sequence(p):
+        inter = p.interactions.cpu().numpy()
+        v = p.valid[0, 0].cpu().numpy()
+        return {tuple(int(i) for i in inter[k] if i >= 0): k
+                for k in np.nonzero(v)[0]}
+
+    kc, kp = by_sequence(paths), by_sequence(cpu)
+    seqs = sorted(kc)
+    tau_c = paths.tau[0, 0].cpu().double().numpy()[[kc[q] for q in seqs]]
+    tau_p = cpu.tau[0, 0].numpy()[[kp[q] for q in seqs]]
+    mag_c = paths.a[0, 0, 0, 0].abs().cpu().double().numpy()[
+        [kc[q] for q in seqs]]
+    mag_p = cpu.a[0, 0, 0, 0].abs().double().numpy()[[kp[q] for q in seqs]]
+    tau_err = float(np.max(np.abs(tau_c - tau_p) / tau_p))
+    a_err = float(np.max(np.abs(mag_c - mag_p)) / np.max(mag_p))
+    print(f"    card (float32 geometry) against the port on the CPU "
+          f"(float64): {len(seqs)} valid sequences equal, tau "
+          f"{tau_err:.2e} relative, |a| {a_err:.2e} of the largest")
+    if not (tau_err <= RT_TAU_RTOL and a_err <= RT_A_RTOL):
+        raise AssertionError("[29] card against CPU out of bounds")
+
+    # Paths.cir through the port's cir_to_ofdm_channel, on the card
+    a, tau = paths.cir(sampling_frequency=1e4, num_time_steps=14)
+    freqs = (torch.arange(-64, 64, device=dev) * 30e3).float()
+    h = cir_to_ofdm_channel(freqs, a[None], tau[None].float())
+    on_card("[29] CIR -> OFDM", [a, tau, h], dev)
+    if h.shape != (1, 1, 1, 1, 1, 14, 128) or not bool(
+            torch.isfinite(h).all()):
+        raise AssertionError(f"[29] CFR {tuple(h.shape)} or not finite")
+    print(f"    Paths.cir -> cir_to_ofdm_channel on the card: "
+          f"{tuple(h.shape)}, finite, mean |h|^2 "
+          f"{float((h.abs() ** 2).mean()):.3e}")
+
+    # trace_functional's gradient on the card against the CPU
+    def grads(device):
+        sc = rt_scene(rt, "simple_reflector", [-5., 0., 5.], [5., 1., 5.],
+                      frequency=3e9)
+        sc.set_material("itu_concrete")
+        fn, args = rt.PathSolver(device=device).trace_functional(
+            sc, max_depth=1, samples_per_src=5000)
+        args = [x.clone().requires_grad_(True) for x in args]
+        a_f, _, valid = fn(*args)
+        loss = torch.where(valid[:, None, :, None], a_f.abs() ** 2,
+                           0.).sum()
+        loss.backward()
+        return [x.grad for x in args]
+
+    g_card, g_cpu = grads(dev), grads("cpu")
+    errs = []
+    for g, w in zip(g_card, g_cpu):
+        on_card("[29] gradient", [g], dev)
+        w = w.to(torch.complex128 if w.is_complex() else torch.float64)
+        errs.append(float((g.cpu().to(w.dtype) - w).abs().max()
+                          / w.abs().max()))
+    print(f"    trace_functional gradients (tx, rx, eta, scat) card "
+          f"against CPU: {', '.join(f'{e:.1e}' for e in errs[:3])} of the "
+          f"largest (scat's is 0 on both)")
+    if not max(errs[:3]) <= RT_GRAD_RTOL:
+        raise AssertionError("[29] gradients differ card/CPU")
+    return solve
+
+
+def rt_city_phase(dev, card):
+    """Phase 30: bench.py's 100k-triangle city on the card."""
+    import sionna_tpu_torch.rt as rt
+    import sionna_tpu_torch.rt.accel as accel
+    import sionna_tpu_torch.rt.geometry as geometry
+    import sionna_tpu_torch.rt.solver as solver_mod
+    c = RT_CITY
+    city = rt_scene(rt, rt.make_city(c["nx"], c["ny"], subdiv=c["subdiv"]),
+                    c["tx"], c["rx"])
+    solver = rt.PathSolver()
+    kw = dict(max_depth=c["max_depth"], samples_per_src=c["samples"])
+    out = {}
+
+    def solve():
+        out["paths"] = solver(city, **kw)
+        out["paths"].tau.cpu()
+
+    accel.STATS.reset()
+    t0 = time.perf_counter()
+    solve()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    st = accel.STATS
+    print(f"    {city.num_triangles} triangles; the first solve {first:.2f} "
+          f"s: cluster builder compiled in "
+          f"{accel.BVH_BUILDER.build_seconds:.2f} s (g++), "
+          f"{st.native_builds} native build(s) in {st.build_s:.3f} s, "
+          f"{st.numpy_builds} NumPy build(s)")
+    if st.native_builds != 1 or st.numpy_builds != 0:
+        raise AssertionError("[30] the native cluster builder did not run")
+    t = host_synced_median_s(solve)
+    paths = out["paths"]
+    on_card("[30] paths", [paths.a, paths.tau, paths.valid], dev)
+    print(json.dumps({"metric": "rt_city100k_ray_segments_per_s",
+                      "value": c["samples"] * (c["max_depth"] + 1) / t / 1e3,
+                      "unit": "krays/s", "card": card}))
+    accel.STATS.reset()
+    peak = peak_gib(solve)
+    st = accel.STATS
+    syncs = host_syncs(solve)
+    print(f"    {t * 1e3:.1f} ms per solve (median of 3, host-synced), peak "
+          f"{peak:.2f} GiB; per solve {st.chunks} accel ray chunks, "
+          f"{st.skipped} skipped (no cluster entered), {st.repairs} took the "
+          f"dense repair sweep; {syncs} host syncs; valid paths per depth "
+          f"{paths_per_depth(paths)}, gain {link_gain(paths):.4e}, on "
+          f"{card}")
+    print_stage_split(solve)
+
+    # the accelerated queries against the dense sweep, on the card
+    acc = accel.build_accel(city.triangles.astype(np.float32), dev)
+    tri = torch.as_tensor(city.triangles, dtype=torch.float32, device=dev)
+    dirs = torch.as_tensor(geometry.fibonacci_sphere(c["samples"])[
+        ::c["samples"] // c["check_rays"]][:c["check_rays"]],
+        dtype=torch.float32, device=dev)
+    orig = torch.as_tensor(c["tx"], dtype=torch.float32,
+                           device=dev).expand_as(dirs)
+    t_a, i_a, h_a = accel.nearest_hit_accel(orig, dirs, acc)
+    t_d, i_d, h_d = geometry.nearest_hit(orig, dirs, tri)
+    same_t = bool(torch.equal(t_a, t_d))
+    # ids where the nearest distance belongs to one triangle only
+    count = torch.zeros(dirs.shape[0], dtype=torch.int64, device=dev)
+    for b in range(0, tri.shape[0], 4096):
+        t_c, hit_c = geometry.moller_trumbore(orig, dirs, tri[b:b + 4096])
+        count += (torch.where(hit_c, t_c, torch.inf) == t_d[:, None]).sum(1)
+    unique = h_d & (count == 1)
+    same_id = bool(torch.equal(i_a[unique], i_d[unique]))
+    seg = dirs * 60.
+    b_a = accel.any_blocking_hit_accel(orig, seg, acc)
+    b_d = geometry.any_blocking_hit(orig, seg, tri)
+    print(f"    nearest_hit_accel on {dirs.shape[0]} of the solve's rays "
+          f"against the dense sweep on the card: {int(h_d.sum())} hits, t "
+          f"{'identical' if same_t else 'DIFFERENT'}, ids "
+          f"{'equal' if same_id else 'DIFFERENT'} on the {int(unique.sum())} "
+          f"with a unique nearest t; any_blocking_hit_accel on 60 m "
+          f"segments: {int(b_d.sum())} blocked, verdicts "
+          f"{'identical' if torch.equal(b_a, b_d) else 'DIFFERENT'}")
+    if not (same_t and same_id and torch.equal(b_a, b_d)
+            and torch.equal(h_a, h_d)):
+        raise AssertionError("[30] accelerated queries differ from the "
+                             "dense sweep")
+
+    # the cut city (accelerated path forced) against the JAX package
+    cut = RT_CITY_CUT
+    small = rt_scene(rt, rt.make_city(cut["nx"], cut["ny"],
+                                      subdiv=cut["subdiv"]),
+                     cut["tx"], cut["rx"])
+    saved = solver_mod.ACCEL_MIN_TRIS
+    solver_mod.ACCEL_MIN_TRIS = 0
+    try:
+        p = rt.PathSolver()(small, max_depth=cut["max_depth"],
+                            samples_per_src=cut["samples"])
+    finally:
+        solver_mod.ACCEL_MIN_TRIS = saved
+    want = RT_JAX["city"]
+    err = check_rel("[30] cut city gain against JAX", link_gain(p),
+                    want["gain"], RT_GAIN_RTOL)
+    print(f"    cut city ({small.num_triangles} triangles, accelerated): "
+          f"valid paths per depth {paths_per_depth(p)} (JAX "
+          f"{want['valid_per_depth']}), gain {err:.1e} from JAX's")
+    if paths_per_depth(p) != want["valid_per_depth"]:
+        raise AssertionError("[30] cut city paths differ from JAX's")
+    return solve
+
+
+def rt_map_phase(dev, card):
+    """Phase 31: bench.py's radio map on the card."""
+    import sionna_tpu_torch.rt as rt
+    c = RT_MAP
+    scene = rt_scene(rt, "simple_street_canyon", RT_CANYON["tx"],
+                     RT_CANYON["rx"])
+    rm_solver = rt.RadioMapSolver()
+    if rm_solver.device != dev:
+        raise AssertionError(f"[31] RadioMapSolver() on {rm_solver.device}")
+    kw = dict(cell_size=c["cell_size"], size=c["size"], center=c["center"],
+              max_depth=c["max_depth"], samples_per_src=c["samples"])
+    out = {}
+
+    def solve():
+        out["rm"] = rm_solver(scene, **kw)
+        out["rm"].path_gain.cpu()
+
+    t = host_synced_median_s(solve)
+    rm = out["rm"]
+    on_card("[31] map", [rm.path_gain, rm.rss, rm.sinr], dev)
+    cells = c["size"][0] * c["size"][1]
+    print(json.dumps({"metric": "rt_radio_map_cells_per_s",
+                      "value": cells / t / 1e3, "unit": "kcells/s",
+                      "card": card}))
+    print(f"    {t * 1e3:.1f} ms per map of {cells} cells (median of 3, "
+          f"host-synced), peak {peak_gib(solve):.2f} GiB, "
+          f"{host_syncs(solve)} host syncs per map, on {card}")
+    print_stage_split(solve)
+    pg = rm.path_gain[0].double().cpu().numpy()
+    live = pg > 1e-15
+    db = 10. * np.log10(pg[live])
+    want = RT_JAX["map"]
+    print(f"    {int(live.sum())} of {pg.size} cells above 1e-15 (JAX "
+          f"{want['live']}), mean {db.mean():.4f} dB (JAX "
+          f"{want['mean_db']:.4f}), std {db.std():.4f} dB (JAX "
+          f"{want['std_db']:.4f}), largest {pg.max():.6e} (JAX "
+          f"{want['max']:.6e})")
+    check_rel("[31] largest gain against JAX", float(pg.max()), want["max"],
+              RT_GAIN_RTOL)
+    ref = np.asarray(want["sample"])
+    rel = np.abs(pg.reshape(-1)[::want["sample_stride"]] - ref) / ref
+    corner = np.zeros(ref.size, bool)
+    corner[want["sample_corner"]] = True
+    print(f"    every {want['sample_stride']}th cell against JAX: "
+          f"{rel[~corner].max():.2e} relative on {int((~corner).sum())} "
+          f"cells; {rel[corner].max():.2e} on the {int(corner.sum())} "
+          f"that a corner path reaches (ROADMAP.md 'Not faults')")
+    if not rel[~corner].max() <= RT_GAIN_RTOL:
+        raise AssertionError("[31] map cells differ from JAX's")
+    if not (int(live.sum()) == want["live"]
+            and abs(db.mean() - want["mean_db"]) <= RT_MAP_DB_ATOL
+            and abs(db.std() - want["std_db"]) <= RT_MAP_DB_ATOL):
+        raise AssertionError("[31] map statistics differ from JAX's")
+
+    # a coarse map on the card against the port on the CPU
+    coarse = dict(cell_size=(2.5, 2.5), size=(100., 20.), center=(0., 0.),
+                  max_depth=2, samples_per_src=20_000)
+    g_card = rm_solver(scene, **coarse).path_gain
+    g_cpu = rt.RadioMapSolver(device="cpu")(scene, **coarse).path_gain
+    on_card("[31] coarse map", [g_card], dev)
+    g_card = g_card.double().cpu()
+    keep = g_cpu > 1e-15
+    err = float(((g_card - g_cpu).abs()[keep] / g_cpu[keep]).max())
+    print(f"    coarse map {tuple(g_cpu.shape)} on the card against the CPU "
+          f"(float64): {err:.2e} relative on {int(keep.sum())} cells")
+    if not err <= RT_GAIN_RTOL:
+        raise AssertionError("[31] coarse map differs card/CPU")
+
+    # output="gain" against the paths' reduction, a few receivers
+    import sionna_tpu_torch.rt.solver as solver_mod
+    few = rt_scene(rt, "simple_street_canyon", RT_CANYON["tx"],
+                   [[20., 5., 1.5], [-35., -3., 1.5], [0., 8., 1.5],
+                    [45., -7., 1.5]])
+    solver = rt.PathSolver()
+    gain = solver(few, max_depth=2, samples_per_src=20_000, output="gain")
+    paths = solver(few, max_depth=2, samples_per_src=20_000)
+    on_card("[31] gain", [gain], dev)
+    ref = solver_mod._gain(paths.a)
+    err = float(((gain - ref).abs() / ref).max())
+    print(f"    output='gain' against the paths' reduction on the card: "
+          f"{err:.1e} relative ({gain.shape[0]} receivers)")
+    if not err <= RT_GAIN_RTOL:
+        raise AssertionError("[31] gain output differs from the paths")
+    return solve
+
+
+def rt_phases(card, results):
+    """Phases 29-31, run in a fresh process by ``main``."""
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    print(f"[29] BASELINE config 4: bench.py's canyon path solve (depth 3, "
+          f"200,000 rays) on {card}")
+    solves = {"canyon": rt_canyon_phase(dev, card)}
+    print(f"    phase 29: {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    print(f"[30] bench.py's city (make_city(10, 10, subdiv=10), depth 2, "
+          f"100,000 rays) on {card}")
+    solves["city"] = rt_city_phase(dev, card)
+    print(f"    phase 30: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    print(f"[31] bench.py's radio map (200 x 200 cells, depth 2, 100,000 "
+          f"rays) on {card}")
+    solves["map"] = rt_map_phase(dev, card)
+    # torch.profiler last: after a profiler window every launch costs more
+    for name, solve in solves.items():
+        idle, busy, span, n = device_idle_share(solve)
+        print(f"    {name}: device idle {100 * idle:.1f} % of a "
+              f"{span * 1e3:.1f} ms call ({busy * 1e3:.1f} ms of device "
+              f"time, {n} kernels and copies; torch.profiler) on {card}")
+    print(f"    phase 31: {time.perf_counter() - t1:.1f} s; phases 29-31: "
+          f"{time.perf_counter() - t0:.1f} s")
+    sys.stdout.flush()
+    results.put({})
+
+
 def run_in_process(target, card, timeout, *args):
     """Runs ``target(card, results, *args)`` in a fresh spawned process and
     returns what it put on the queue ``results`` (None if nothing);
@@ -3099,7 +3776,11 @@ def main():
     # phases 26-28 (flat fading, pulse shaping, the optical link), likewise
     t0 = time.perf_counter()
     run_in_process(flat_phases, card, 600, ops_per_update["log1p"])
-    print(f"    phases 26-28 took {time.perf_counter() - t0:.1f} s; the "
+    print(f"    phases 26-28 took {time.perf_counter() - t0:.1f} s")
+    # phases 29-31 (BASELINE config 4, the ray tracer), likewise
+    t0 = time.perf_counter()
+    run_in_process(rt_phases, card, 600)
+    print(f"    phases 29-31 took {time.perf_counter() - t0:.1f} s; the "
           f"script {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{

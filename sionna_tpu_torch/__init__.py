@@ -9,4 +9,4 @@ kernels live in ``csrc/`` and are built with nvcc on first use (see
 
 __version__ = "0.1.0"
 
-from . import phy, sys
+from . import phy, rt, sys
