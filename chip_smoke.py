@@ -239,6 +239,52 @@ Phases 29-31 run in a process of their own, every tensor of a solve on
 is XLA code with no Pallas kernel (``sionna_tpu/rt/``), so the port's is
 plain torch.
 
+32. renders at upstream Sionna RT's default ``Scene.render`` resolution,
+    655 x 500 (327,500 rays; ``RT_RENDER``'s cameras), phase 29's canyon
+    with its tx and rx as markers, the same view under phase 31's 200 x
+    200 radio map, phase 30's cut city and bench.py's 100,200-triangle
+    city (the natively built clustered structure, its build time
+    printed): the canyon, the overlay and the cut city against the JAX
+    package's images on the CPU (``tools/rt_render_ref.py``: pixel-class
+    counts, channel means, every 997th pixel, those shaded from another
+    triangle on a shared edge printed apart); the city's accelerated hits
+    against the dense sweep on the card (t and hits identical, ids equal
+    where t is unique); ms per render (host-synced median of 3), rays/s,
+    peak memory and the device's idle share;
+33. loads ``tests/data/mitsuba_fixture/street_canyon.xml`` (triangles and
+    materials identical to the procedural canyon's) and solves phase 29's
+    canyon on it on the card: identical to the procedural canyon's solve,
+    valid paths per depth and gain as JAX's; exports bench.py's city with
+    ``export_mitsuba_xml`` to a temporary directory and loads it back
+    (the exporter's float32 vertices, rounded to 1e-9 m first), its solve
+    against phase 30's: valid paths and interactions identical, tau and
+    |a| within phase 29's bounds; the export and load times of the
+    100,200-triangle bundle.
+
+Phases 32-33 run in a process of their own. No kernel is written for
+them: the JAX package's renderer and loader hold no Pallas kernel; the
+render traces its rays through phase 30's intersection code.
+
+34. runs phase 5's link through ``sim_ber`` over ``torch.distributed``
+    ranks, each a spawned process joined by ``init_multihost``: two gloo
+    ranks sharing the card (``distribute="multihost"``, 1,000 codewords
+    each per iteration) and one NCCL rank (NCCL takes one rank per card;
+    ``distribute="all"``, the group's world): the BLER bands of phase 5,
+    the counters every rank saw equal to the sums of the ranks' own
+    counts, one K1 launch per decoder call on every rank, the 3 dB point
+    ended on its summed block-error target at the same iteration on
+    every rank (before one rank's own errors would have);
+35. runs the port's five examples (``sionna_tpu_torch/examples``) at
+    full size on the card, each as ``__main__`` in a fresh process with
+    its time limit (``EXAMPLES``): the wall time and last lines of each,
+    example 01's BER within 5 standard errors of the closed form at every
+    point, example 03's BLER at 8 dB inside the JAX band of phase 17's
+    link (a check that the example runs the link: its sweep stops at 100
+    block errors, 512 codewords, so the band is wide; phase 17 holds the
+    link tightly), one launch of K1's min-sum variant per call of
+    ``LDPC5GDecoder`` (counted on its ``forward``) in 02 and 03 and no
+    kernel launch in the others.
+
 Phases 15 and 16 run in a process of their own; each link is held to
 its BLER band from a JAX run of the same link
 (``tools/fec_links_bler.py``), with every tensor on the card and no
@@ -671,6 +717,752 @@ RT_TAU_RTOL = 1e-6
 RT_A_RTOL = 1e-4
 RT_MAP_DB_ATOL = 0.01
 RT_GRAD_RTOL = 1e-3
+
+
+# Phase 32's views at upstream Sionna RT's default Scene.render resolution
+# (655 x 500; the renderer's default fov of 45 degrees): phase 29's canyon
+# (and the same view under phase 31's radio map), phase 30's cut city and
+# bench.py's city, each with its phase's tx and rx as markers; a camera
+# (position, look-at point) per scene
+RT_RENDER = dict(resolution=(655, 500), sample_stride=997,
+                 views={"canyon": ([-60., 0., 30.], [0., 0., 5.]),
+                        "city_cut": ([-16., -100., 60.], [-16., 16., 0.]),
+                        "city": ([0., -200., 80.], [0., 32., 0.])})
+# against JAX's images of the same views on the CPU: each pixel class's
+# count (sky, geometry, tx and rx markers, map overlay) within a share of
+# the pixels, the per-channel means absolute, every sample_stride-th pixel
+# absolute (but where the two hit different triangles on a shared edge)
+RT_RENDER_COUNT_SHARE = 0.005
+RT_RENDER_MEAN_ATOL = 1e-3
+RT_RENDER_PIXEL_ATOL = 1e-4
+# PYTHONPATH=. python tools/rt_render_ref.py (the JAX package on the CPU)
+RT_RENDER_JAX = {
+    "canyon": {
+        "mean": [0.4295101045901311, 0.4086268674683935, 0.38246186424191214],
+        "counts": {"sky": 23935, "geometry": 301857, "tx": 1341,
+                   "rx": 367, "overlay": 0},
+        "sample": [
+            [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.72,
+            0.82, 0.92], [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.5806102,
+            0.5618808, 0.5337868], [0.5806102, 0.5618808, 0.5337868],
+            [0.5806102, 0.5618808, 0.5337868], [0.5806102, 0.5618808,
+            0.5337868], [0.5806102, 0.5618808, 0.5337868], [0.5806102,
+            0.5618808, 0.5337868], [0.5806102, 0.5618808, 0.5337868],
+            [0.5806102, 0.5618808, 0.5337868], [0.5806102, 0.5618808,
+            0.5337868], [0.5806102, 0.5618808, 0.5337868], [0.3180028,
+            0.3077447, 0.2923574], [0.5806102, 0.5618808, 0.5337868], [0.72,
+            0.82, 0.92], [0.5806102, 0.5618808, 0.5337868], [0.72, 0.82,
+            0.92], [0.5806102, 0.5618808, 0.5337868], [0.72, 0.82, 0.92],
+            [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.5806102, 0.5618808,
+            0.5337868], [0.72, 0.82, 0.92], [0.5806102, 0.5618808, 0.5337868],
+            [0.3180028, 0.3077447, 0.2923574], [0.5806102, 0.5618808,
+            0.5337868], [0.3180028, 0.3077447, 0.2923574], [0.5806102,
+            0.5618808, 0.5337868], [0.5806102, 0.5618808, 0.5337868],
+            [0.5806102, 0.5618808, 0.5337868], [0.5806102, 0.5618808,
+            0.5337868], [0.5806102, 0.5618808, 0.5337868], [0.5806102,
+            0.5618808, 0.5337868], [0.3180028, 0.3077447, 0.2923574],
+            [0.5806102, 0.5618808, 0.5337868], [0.3180028, 0.3077447,
+            0.2923574], [0.5806102, 0.5618808, 0.5337868], [0.72, 0.82, 0.92],
+            [0.5806102, 0.5618808, 0.5337868], [0.72, 0.82, 0.92], [0.5806102,
+            0.5618808, 0.5337868], [0.72, 0.82, 0.92], [0.5806102, 0.5618808,
+            0.5337868], [0.72, 0.82, 0.92], [0.5806102, 0.5618808, 0.5337868],
+            [0.72, 0.82, 0.92], [0.5806102, 0.5618808, 0.5337868], [0.3180028,
+            0.3077447, 0.2923574], [0.5806102, 0.5618808, 0.5337868],
+            [0.3180028, 0.3077447, 0.2923574], [0.5806102, 0.5618808,
+            0.5337868], [0.3180028, 0.3077447, 0.2923574], [0.5806102,
+            0.5618808, 0.5337868], [0.5806102, 0.5618808, 0.5337868],
+            [0.3180028, 0.3077447, 0.2923574], [0.5806102, 0.5618808,
+            0.5337868], [0.3180028, 0.3077447, 0.2923574], [0.5806102,
+            0.5618808, 0.5337868], [0.3180028, 0.3077447, 0.2923574],
+            [0.5806102, 0.5618808, 0.5337868], [0.72, 0.82, 0.92], [0.5806102,
+            0.5618808, 0.5337868], [0.72, 0.82, 0.92], [0.5806102, 0.5618808,
+            0.5337868], [0.72, 0.82, 0.92], [0.5806102, 0.5618808, 0.5337868],
+            [0.72, 0.82, 0.92], [0.5806102, 0.5618808, 0.5337868], [0.72,
+            0.82, 0.92], [0.5806102, 0.5618808, 0.5337868], [0.3180028,
+            0.3077447, 0.2923574], [0.5806102, 0.5618808, 0.5337868],
+            [0.3180028, 0.3077447, 0.2923574], [0.5806102, 0.5618808,
+            0.5337868], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.3180028, 0.3077447, 0.2923574], [0.5806102, 0.5618808,
+            0.5337868], [0.3180028, 0.3077447, 0.2923574], [0.5806102,
+            0.5618808, 0.5337868], [0.3180028, 0.3077447, 0.2923574],
+            [0.5806102, 0.5618808, 0.5337868], [0.4214106, 0.3558578,
+            0.2809404], [0.5806102, 0.5618808, 0.5337868], [0.4214106,
+            0.3558578, 0.2809404], [0.5806102, 0.5618808, 0.5337868],
+            [0.4214106, 0.3558578, 0.2809404], [0.5806102, 0.5618808,
+            0.5337868], [0.4214106, 0.3558578, 0.2809404], [0.5806102,
+            0.5618808, 0.5337868], [0.4214106, 0.3558578, 0.2809404],
+            [0.5806102, 0.5618808, 0.5337868], [0.3180028, 0.3077447,
+            0.2923574], [0.5806102, 0.5618808, 0.5337868], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.3180028, 0.3077447, 0.2923574], [0.3180028, 0.3077447,
+            0.2923574], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.3180028, 0.3077447, 0.2923574], [0.5806102, 0.5618808,
+            0.5337868], [0.4214106, 0.3558578, 0.2809404], [0.5806102,
+            0.5618808, 0.5337868], [0.4214106, 0.3558578, 0.2809404],
+            [0.5806102, 0.5618808, 0.5337868], [0.4214106, 0.3558578,
+            0.2809404], [0.5806102, 0.5618808, 0.5337868], [0.4214106,
+            0.3558578, 0.2809404], [0.5806102, 0.5618808, 0.5337868],
+            [0.4214106, 0.3558578, 0.2809404], [0.5806102, 0.5618808,
+            0.5337868], [0.4214106, 0.3558578, 0.2809404], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.3180028, 0.3077447, 0.2923574], [0.3180028, 0.3077447,
+            0.2923574], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.3180028, 0.3077447, 0.2923574], [0.3180028, 0.3077447,
+            0.2923574], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.4214106, 0.3558578, 0.2809404], [0.5806102, 0.5618808,
+            0.5337868], [0.4214106, 0.3558578, 0.2809404], [0.5806102,
+            0.5618808, 0.5337868], [0.4214106, 0.3558578, 0.2809404],
+            [0.5806102, 0.5618808, 0.5337868], [0.4214106, 0.3558578,
+            0.2809404], [0.5806102, 0.5618808, 0.5337868], [0.4214106,
+            0.3558578, 0.2809404], [0.3180028, 0.3077447, 0.2923574],
+            [0.4214106, 0.3558578, 0.2809404], [0.3180028, 0.3077447,
+            0.2923574], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.3180028, 0.3077447, 0.2923574], [0.3180028, 0.3077447,
+            0.2923574], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.3180028, 0.3077447, 0.2923574], [0.4214106, 0.3558578,
+            0.2809404], [0.3180028, 0.3077447, 0.2923574], [0.4214106,
+            0.3558578, 0.2809404], [0.3180028, 0.3077447, 0.2923574],
+            [0.4214106, 0.3558578, 0.2809404], [0.5806102, 0.5618808,
+            0.5337868], [0.4214106, 0.3558578, 0.2809404], [0.5806102,
+            0.5618808, 0.5337868], [0.4214106, 0.3558578, 0.2809404],
+            [0.3180028, 0.3077447, 0.2923574], [0.4214106, 0.3558578,
+            0.2809404], [0.3180028, 0.3077447, 0.2923574], [0.4214106,
+            0.3558578, 0.2809404], [0.3180028, 0.3077447, 0.2923574],
+            [0.3180028, 0.3077447, 0.2923574], [0.3180028, 0.3077447,
+            0.2923574], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.3180028, 0.3077447, 0.2923574], [0.3180028, 0.3077447,
+            0.2923574], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.4214106, 0.3558578, 0.2809404],
+            [0.3180028, 0.3077447, 0.2923574], [0.4214106, 0.3558578,
+            0.2809404], [0.3180028, 0.3077447, 0.2923574], [0.4214106,
+            0.3558578, 0.2809404], [0.3180028, 0.3077447, 0.2923574],
+            [0.4214106, 0.3558578, 0.2809404], [0.3180028, 0.3077447,
+            0.2923574], [0.4214106, 0.3558578, 0.2809404], [0.3180028,
+            0.3077447, 0.2923574], [0.4214106, 0.3558578, 0.2809404],
+            [0.3180028, 0.3077447, 0.2923574], [0.4214106, 0.3558578,
+            0.2809404], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.3180028, 0.3077447, 0.2923574], [0.3180028, 0.3077447,
+            0.2923574], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.4214106, 0.3558578, 0.2809404], [0.3180028, 0.3077447,
+            0.2923574], [0.4214106, 0.3558578, 0.2809404], [0.3180028,
+            0.3077447, 0.2923574], [0.4214106, 0.3558578, 0.2809404],
+            [0.3180028, 0.3077447, 0.2923574], [0.85, 0.15, 0.1], [0.3180028,
+            0.3077447, 0.2923574], [0.85, 0.15, 0.1], [0.3180028, 0.3077447,
+            0.2923574], [0.4214106, 0.3558578, 0.2809404], [0.3180028,
+            0.3077447, 0.2923574], [0.4214106, 0.3558578, 0.2809404],
+            [0.3180028, 0.3077447, 0.2923574], [0.4214106, 0.3558578,
+            0.2809404], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.3180028, 0.3077447, 0.2923574], [0.3180028, 0.3077447,
+            0.2923574], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.4214106, 0.3558578, 0.2809404], [0.3180028, 0.3077447,
+            0.2923574], [0.4214106, 0.3558578, 0.2809404], [0.3180028,
+            0.3077447, 0.2923574], [0.4214106, 0.3558578, 0.2809404],
+            [0.3180028, 0.3077447, 0.2923574], [0.4214106, 0.3558578,
+            0.2809404], [0.3180028, 0.3077447, 0.2923574], [0.4214106,
+            0.3558578, 0.2809404], [0.3180028, 0.3077447, 0.2923574],
+            [0.4214106, 0.3558578, 0.2809404], [0.3180028, 0.3077447,
+            0.2923574], [0.4214106, 0.3558578, 0.2809404], [0.3180028,
+            0.3077447, 0.2923574], [0.4214106, 0.3558578, 0.2809404],
+            [0.3180028, 0.3077447, 0.2923574], [0.4214106, 0.3558578,
+            0.2809404], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.3180028, 0.3077447, 0.2923574], [0.4214106, 0.3558578,
+            0.2809404], [0.3180028, 0.3077447, 0.2923574], [0.4214106,
+            0.3558578, 0.2809404], [0.3180028, 0.3077447, 0.2923574],
+            [0.4214106, 0.3558578, 0.2809404], [0.3180028, 0.3077447,
+            0.2923574], [0.4214106, 0.3558578, 0.2809404], [0.3180028,
+            0.3077447, 0.2923574], [0.4214106, 0.3558578, 0.2809404],
+            [0.3180028, 0.3077447, 0.2923574], [0.4214106, 0.3558578,
+            0.2809404], [0.3180028, 0.3077447, 0.2923574], [0.4214106,
+            0.3558578, 0.2809404], [0.3180028, 0.3077447, 0.2923574],
+            [0.4214106, 0.3558578, 0.2809404], [0.3180028, 0.3077447,
+            0.2923574], [0.4214106, 0.3558578, 0.2809404], [0.3180028,
+            0.3077447, 0.2923574], [0.4214106, 0.3558578, 0.2809404],
+            [0.3180028, 0.3077447, 0.2923574], [0.3180028, 0.3077447,
+            0.2923574], [0.4214106, 0.3558578, 0.2809404], [0.3180028,
+            0.3077447, 0.2923574], [0.4214106, 0.3558578, 0.2809404],
+            [0.3180028, 0.3077447, 0.2923574], [0.4214106, 0.3558578,
+            0.2809404], [0.3180028, 0.3077447, 0.2923574], [0.4214106,
+            0.3558578, 0.2809404], [0.3180028, 0.3077447, 0.2923574],
+            [0.4214106, 0.3558578, 0.2809404], [0.3180028, 0.3077447,
+            0.2923574], [0.4214106, 0.3558578, 0.2809404], [0.3180028,
+            0.3077447, 0.2923574], [0.4214106, 0.3558578, 0.2809404],
+            [0.3180028, 0.3077447, 0.2923574], [0.4214106, 0.3558578,
+            0.2809404], [0.3180028, 0.3077447, 0.2923574], [0.4214106,
+            0.3558578, 0.2809404], [0.3180028, 0.3077447, 0.2923574],
+            [0.4214106, 0.3558578, 0.2809404], [0.3180028, 0.3077447,
+            0.2923574], [0.4214106, 0.3558578, 0.2809404], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.4214106, 0.3558578, 0.2809404], [0.3180028, 0.3077447,
+            0.2923574], [0.4214106, 0.3558578, 0.2809404], [0.3180028,
+            0.3077447, 0.2923574], [0.4214106, 0.3558578, 0.2809404],
+            [0.3180028, 0.3077447, 0.2923574], [0.4214106, 0.3558578,
+            0.2809404], [0.3180028, 0.3077447, 0.2923574], [0.4214106,
+            0.3558578, 0.2809404], [0.3180028, 0.3077447, 0.2923574],
+            [0.4214106, 0.3558578, 0.2809404], [0.3180028, 0.3077447,
+            0.2923574], [0.4214106, 0.3558578, 0.2809404], [0.3180028,
+            0.3077447, 0.2923574], [0.4214106, 0.3558578, 0.2809404],
+            [0.3180028, 0.3077447, 0.2923574], [0.4214106, 0.3558578,
+            0.2809404], [0.3180028, 0.3077447, 0.2923574], [0.4214106,
+            0.3558578, 0.2809404], [0.3180028, 0.3077447, 0.2923574],
+            [0.4214106, 0.3558578, 0.2809404], [0.4214106, 0.3558578,
+            0.2809404], [0.3180028, 0.3077447, 0.2923574], [0.4214106,
+            0.3558578, 0.2809404], [0.3180028, 0.3077447, 0.2923574],
+            [0.4214106, 0.3558578, 0.2809404], [0.3180028, 0.3077447,
+            0.2923574], [0.4214106, 0.3558578, 0.2809404], [0.3180028,
+            0.3077447, 0.2923574], [0.4214106, 0.3558578, 0.2809404],
+            [0.3180028, 0.3077447, 0.2923574], [0.4214106, 0.3558578,
+            0.2809404], [0.3180028, 0.3077447, 0.2923574], [0.4214106,
+            0.3558578, 0.2809404], [0.3180028, 0.3077447, 0.2923574],
+            [0.4214106, 0.3558578, 0.2809404], [0.3180028, 0.3077447,
+            0.2923574], [0.4214106, 0.3558578, 0.2809404], [0.3180028,
+            0.3077447, 0.2923574], [0.4214106, 0.3558578, 0.2809404],
+            [0.3180028, 0.3077447, 0.2923574], [0.4214106, 0.3558578,
+            0.2809404], [0.3180028, 0.3077447, 0.2923574], [0.4214106,
+            0.3558578, 0.2809404], [0.4214106, 0.3558578, 0.2809404]],
+        "sample_tri": [
+            -1, -1, -1, -1, -1, -1, 2, 13, 3, 13, 3, 13, 3, 13, 3, 13, 4, 13,
+            -1, 13, -1, 13, -1, -1, -1, 2, -1, 2, 16, 3, 17, 3, 12, 3, 12, 3,
+            12, 4, 12, 5, 13, -1, 13, -1, 13, -1, 2, -1, 2, -1, 3, 16, 3, 17,
+            3, 17, 3, 12, 4, 12, 4, 12, 5, 12, -1, 12, -1, 12, -1, 2, -1, 3,
+            -1, 3, 16, 3, 17, 3, 17, 4, 17, 4, 12, 5, 12, 5, 12, 0, 12, 0, 12,
+            0, 3, 0, 3, 0, 3, 16, 3, 17, 4, 17, 4, 17, 4, 17, 5, 12, 0, 12, 0,
+            12, 0, 3, 0, 3, 0, 3, 0, 4, 16, 4, 17, 4, 17, 4, 17, 5, 17, 5, 17,
+            0, 12, 0, 12, 0, 3, 0, 3, 0, 4, 0, 4, 16, 4, 17, 4, 17, 4, 17, 5,
+            17, 0, 17, 0, 17, 0, 12, 0, 3, 0, 4, 0, 4, 0, 4, 16, 4, 17, 4, 17,
+            5, 17, 5, 17, 1, 17, 1, 17, 0, 17, 0, 4, 0, 4, 0, 4, 0, 4, 16, 4,
+            16, 4, 17, 5, 17, 1, 17, 1, 17, 1, 17, 1, 17, 0, 4, 0, 4, 0, 4, 0,
+            4, 16, 4, 16, 5, 17, 5, 17, 1, 17, 1, 17, 1, 17, 1, 4, 1, 4, 1, 4,
+            0, 4, 0, 4, 0, 4, 16, 5, 17, 1, 17, 1, 17, 1, 17, 1, 17, 1, 4, 1,
+            4, 1, 4, 1, 4, 1, 4, 0, 5, 16, 1, 17, 1, 17, 1, 17, 1, 17, 1, 17,
+            1, 4, 1, 4, 1, 4, 1, 4, 1, 4, 1, 5, 16, 1, 17, 1, 17, 1, 17, 1,
+            17, 1, 17, 1, 4, 1, 4, 1, 4, 1, 4, 1, 5, 1, 1, 16, 1, 17, 1, 17,
+            1, 17, 1, 17, 1, 17, 1, 4, 1, 4, 1, 4, 1, 4, 1, 5, 1, 1],
+    },
+    "map": {
+        "mean": [0.4922127143826876, 0.49371188331432925, 0.3665843846369563],
+        "counts": {"sky": 15939, "geometry": 209256, "tx": 1341,
+                   "rx": 247, "overlay": 100717},
+        "sample": [
+            [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.72,
+            0.82, 0.92], [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.5806102,
+            0.5618808, 0.5337868], [0.5806102, 0.5618808, 0.5337868],
+            [0.5806102, 0.5618808, 0.5337868], [0.5806102, 0.5618808,
+            0.5337868], [0.5806102, 0.5618808, 0.5337868], [0.5806102,
+            0.5618808, 0.5337868], [0.5806102, 0.5618808, 0.5337868],
+            [0.5806102, 0.5618808, 0.5337868], [0.5806102, 0.5618808,
+            0.5337868], [0.5806102, 0.5618808, 0.5337868], [0.3180028,
+            0.3077447, 0.2923574], [0.5806102, 0.5618808, 0.5337868], [0.72,
+            0.82, 0.92], [0.5806102, 0.5618808, 0.5337868], [0.72, 0.82, 0.92],
+            [0.5806102, 0.5618808, 0.5337868], [0.72, 0.82, 0.92], [0.72, 0.82,
+            0.92], [0.72, 0.82, 0.92], [0.5806102, 0.5618808, 0.5337868],
+            [0.72, 0.82, 0.92], [0.5806102, 0.5618808, 0.5337868], [0.3180028,
+            0.3077447, 0.2923574], [0.5806102, 0.5618808, 0.5337868],
+            [0.3180028, 0.3077447, 0.2923574], [0.5806102, 0.5618808,
+            0.5337868], [0.5806102, 0.5618808, 0.5337868], [0.5806102,
+            0.5618808, 0.5337868], [0.5806102, 0.5618808, 0.5337868],
+            [0.5806102, 0.5618808, 0.5337868], [0.5806102, 0.5618808,
+            0.5337868], [0.3180028, 0.3077447, 0.2923574], [0.5806102,
+            0.5618808, 0.5337868], [0.3180028, 0.3077447, 0.2923574],
+            [0.5806102, 0.5618808, 0.5337868], [0.72, 0.82, 0.92], [0.5806102,
+            0.5618808, 0.5337868], [0.72, 0.82, 0.92], [0.5806102, 0.5618808,
+            0.5337868], [0.72, 0.82, 0.92], [0.5806102, 0.5618808, 0.5337868],
+            [0.72, 0.82, 0.92], [0.5806102, 0.5618808, 0.5337868], [0.72, 0.82,
+            0.92], [0.5806102, 0.5618808, 0.5337868], [0.3180028, 0.3077447,
+            0.2923574], [0.5806102, 0.5618808, 0.5337868], [0.3180028,
+            0.3077447, 0.2923574], [0.5806102, 0.5618808, 0.5337868],
+            [0.3180028, 0.3077447, 0.2923574], [0.5806102, 0.5618808,
+            0.5337868], [0.5806102, 0.5618808, 0.5337868], [0.3180028,
+            0.3077447, 0.2923574], [0.5806102, 0.5618808, 0.5337868],
+            [0.3180028, 0.3077447, 0.2923574], [0.5806102, 0.5618808,
+            0.5337868], [0.3180028, 0.3077447, 0.2923574], [0.5806102,
+            0.5618808, 0.5337868], [0.4335263, 0.6958593, 0.6332433],
+            [0.5806102, 0.5618808, 0.5337868], [0.4775316, 0.7132567,
+            0.612264], [0.5806102, 0.5618808, 0.5337868], [0.483704, 0.7156969,
+            0.6093214], [0.5806102, 0.5618808, 0.5337868], [0.4977883,
+            0.7212651, 0.6026068], [0.5806102, 0.5618808, 0.5337868],
+            [0.4590867, 0.7059645, 0.6210575], [0.5806102, 0.5618808,
+            0.5337868], [0.3180028, 0.3077447, 0.2923574], [0.5806102,
+            0.5618808, 0.5337868], [0.3180028, 0.3077447, 0.2923574],
+            [0.5806102, 0.5618808, 0.5337868], [0.3180028, 0.3077447,
+            0.2923574], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.5806102, 0.5618808, 0.5337868], [0.3180028, 0.3077447,
+            0.2923574], [0.5806102, 0.5618808, 0.5337868], [0.3180028,
+            0.3077447, 0.2923574], [0.5806102, 0.5618808, 0.5337868],
+            [0.4296981, 0.5732124, 0.3615747], [0.5806102, 0.5618808,
+            0.5337868], [0.4320081, 0.5741257, 0.3604734], [0.5806102,
+            0.5618808, 0.5337868], [0.435651, 0.5755659, 0.3587367],
+            [0.5806102, 0.5618808, 0.5337868], [0.4403463, 0.5774222,
+            0.3564983], [0.5806102, 0.5618808, 0.5337868], [0.4441328,
+            0.5789192, 0.3546931], [0.5806102, 0.5618808, 0.5337868],
+            [0.3180028, 0.3077447, 0.2923574], [0.5806102, 0.5618808,
+            0.5337868], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.3180028, 0.3077447, 0.2923574], [0.3180028, 0.3077447,
+            0.2923574], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.5806102, 0.5618808, 0.5337868], [0.4685085, 0.5885561,
+            0.3430721], [0.5806102, 0.5618808, 0.5337868], [0.4667058,
+            0.5878434, 0.3439315], [0.5806102, 0.5618808, 0.5337868],
+            [0.4681717, 0.588423, 0.3432327], [0.5806102, 0.5618808,
+            0.5337868], [0.4732568, 0.5904333, 0.3408084], [0.5806102,
+            0.5618808, 0.5337868], [0.4769396, 0.5918893, 0.3390526],
+            [0.5806102, 0.5618808, 0.5337868], [0.4809435, 0.5934722,
+            0.3371438], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.3180028, 0.3077447, 0.2923574], [0.3180028, 0.3077447,
+            0.2923574], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.3180028, 0.3077447, 0.2923574], [0.3180028, 0.3077447,
+            0.2923574], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.5048265, 0.6029144, 0.3257577],
+            [0.5806102, 0.5618808, 0.5337868], [0.5063527, 0.6035178,
+            0.3250301], [0.5806102, 0.5618808, 0.5337868], [0.5093244,
+            0.6046926, 0.3236133], [0.5806102, 0.5618808, 0.5337868],
+            [0.5131374, 0.6062001, 0.3217955], [0.5806102, 0.5618808,
+            0.5337868], [0.5141368, 0.6065952, 0.3213191], [0.3180028,
+            0.3077447, 0.2923574], [0.5195974, 0.608754, 0.3187158],
+            [0.3180028, 0.3077447, 0.2923574], [0.3180028, 0.3077447,
+            0.2923574], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.3180028, 0.3077447, 0.2923574], [0.3180028, 0.3077447,
+            0.2923574], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.539454, 0.6166043, 0.3092492], [0.3180028, 0.3077447,
+            0.2923574], [0.5422965, 0.6177281, 0.3078941], [0.3180028,
+            0.3077447, 0.2923574], [0.5460479, 0.6192112, 0.3061057],
+            [0.5806102, 0.5618808, 0.5337868], [0.550657, 0.6210334,
+            0.3039083], [0.5806102, 0.5618808, 0.5337868], [0.5508201,
+            0.6210979, 0.3038305], [0.3180028, 0.3077447, 0.2923574],
+            [0.5564242, 0.6233134, 0.3011588], [0.3180028, 0.3077447,
+            0.2923574], [0.5623162, 0.6256429, 0.2983498], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.3180028, 0.3077447, 0.2923574], [0.3180028, 0.3077447,
+            0.2923574], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.3180028, 0.3077447, 0.2923574], [0.3180028, 0.3077447,
+            0.2923574], [0.3180028, 0.3077447, 0.2923574], [0.5837597,
+            0.6341205, 0.2881268], [0.3180028, 0.3077447, 0.2923574],
+            [0.5895895, 0.6364253, 0.2853474], [0.3180028, 0.3077447,
+            0.2923574], [0.5898134, 0.6365138, 0.2852407], [0.3180028,
+            0.3077447, 0.2923574], [0.5965527, 0.6391782, 0.2820278],
+            [0.3180028, 0.3077447, 0.2923574], [0.6031464, 0.641785,
+            0.2788843], [0.3180028, 0.3077447, 0.2923574], [0.6022367,
+            0.6414254, 0.2793179], [0.3180028, 0.3077447, 0.2923574],
+            [0.6081865, 0.6437777, 0.2764814], [0.3180028, 0.3077447,
+            0.2923574], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.3180028, 0.3077447, 0.2923574], [0.3180028, 0.3077447,
+            0.2923574], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.6195273, 0.6482612, 0.2710747],
+            [0.3180028, 0.3077447, 0.2923574], [0.6295894, 0.6522393,
+            0.2662777], [0.3180028, 0.3077447, 0.2923574], [0.6410105,
+            0.6567546, 0.2608328], [0.3180028, 0.3077447, 0.2923574], [0.85,
+            0.15, 0.1], [0.3180028, 0.3077447, 0.2923574], [0.85, 0.15, 0.1],
+            [0.3180028, 0.3077447, 0.2923574], [0.6496232, 0.6601596,
+            0.2567267], [0.3180028, 0.3077447, 0.2923574], [0.6548312,
+            0.6622186, 0.2542439], [0.3180028, 0.3077447, 0.2923574],
+            [0.6505861, 0.6605402, 0.2562677], [0.3180028, 0.3077447,
+            0.2923574], [0.6175585, 0.644952, 0.2587547], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.3180028, 0.3077447, 0.2923574], [0.3180028, 0.3077447,
+            0.2923574], [0.6242565, 0.6476, 0.2555614], [0.3180028, 0.3077447,
+            0.2923574], [0.6695779, 0.6680486, 0.2472134], [0.3180028,
+            0.3077447, 0.2923574], [0.6811596, 0.6726274, 0.2416919],
+            [0.3180028, 0.3077447, 0.2923574], [0.6873533, 0.6750761,
+            0.2387391], [0.3180028, 0.3077447, 0.2923574], [0.7029042,
+            0.6812242, 0.2313253], [0.3180028, 0.3077447, 0.2923574],
+            [0.7019631, 0.6808521, 0.2317739], [0.3180028, 0.3077447,
+            0.2923574], [0.707764, 0.6831455, 0.2290084], [0.3180028,
+            0.3077447, 0.2923574], [0.6994636, 0.6798639, 0.2329656],
+            [0.3180028, 0.3077447, 0.2923574], [0.6895363, 0.6759392,
+            0.2376984], [0.3180028, 0.3077447, 0.2923574], [0.685964,
+            0.6745269, 0.2394015], [0.3180028, 0.3077447, 0.2923574],
+            [0.3180028, 0.3077447, 0.2923574], [0.3180028, 0.3077447,
+            0.2923574], [0.3180028, 0.3077447, 0.2923574], [0.6968656,
+            0.6788368, 0.2342042], [0.3180028, 0.3077447, 0.2923574],
+            [0.7112782, 0.6845348, 0.227333], [0.3180028, 0.3077447,
+            0.2923574], [0.7349787, 0.6939048, 0.216034], [0.3180028,
+            0.3077447, 0.2923574], [0.7428306, 0.697009, 0.2122906],
+            [0.3180028, 0.3077447, 0.2923574], [0.758135, 0.7030596,
+            0.2049944], [0.3180028, 0.3077447, 0.2923574], [0.7563315,
+            0.7023466, 0.2058541], [0.3180028, 0.3077447, 0.2923574],
+            [0.7478298, 0.6989855, 0.2099073], [0.3180028, 0.3077447,
+            0.2923574], [0.741748, 0.696581, 0.2128067], [0.3180028, 0.3077447,
+            0.2923574], [0.724159, 0.6896272, 0.2211922], [0.3180028,
+            0.3077447, 0.2923574], [0.7059755, 0.6824384, 0.2298611],
+            [0.3180028, 0.3077447, 0.2923574], [0.3180028, 0.3077447,
+            0.2923574], [0.7094759, 0.6838223, 0.2281923], [0.3180028,
+            0.3077447, 0.2923574], [0.7291481, 0.6915997, 0.2188137],
+            [0.3180028, 0.3077447, 0.2923574], [0.7531356, 0.7010831,
+            0.2073778], [0.3180028, 0.3077447, 0.2923574], [0.7701379,
+            0.7078049, 0.199272], [0.3180028, 0.3077447, 0.2923574],
+            [0.7811214, 0.7121472, 0.1940357], [0.3180028, 0.3077447,
+            0.2923574], [0.7884244, 0.7150345, 0.190554], [0.3180028,
+            0.3077447, 0.2923574], [0.7859405, 0.7140524, 0.1917382],
+            [0.3180028, 0.3077447, 0.2923574], [0.774412, 0.7094947,
+            0.1972343], [0.3180028, 0.3077447, 0.2923574], [0.7584728,
+            0.7031931, 0.2048333], [0.3180028, 0.3077447, 0.2923574],
+            [0.7372078, 0.6947861, 0.2149713], [0.3180028, 0.3077447,
+            0.2923574], [0.7344366, 0.6936905, 0.2162924], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.7344813, 0.6937081, 0.2162711], [0.3180028, 0.3077447,
+            0.2923574], [0.7480615, 0.699077, 0.2097968], [0.3180028,
+            0.3077447, 0.2923574], [0.7681232, 0.7070084, 0.2002325],
+            [0.3180028, 0.3077447, 0.2923574], [0.774412, 0.7094947,
+            0.1972343], [0.3180028, 0.3077447, 0.2923574], [0.7859405,
+            0.7140524, 0.1917382], [0.3180028, 0.3077447, 0.2923574],
+            [0.7900937, 0.7156944, 0.1897582], [0.3180028, 0.3077447,
+            0.2923574], [0.7765727, 0.7103489, 0.1962043], [0.3180028,
+            0.3077447, 0.2923574], [0.7701379, 0.7078049, 0.199272],
+            [0.3180028, 0.3077447, 0.2923574], [0.7531356, 0.7010831,
+            0.2073778], [0.3180028, 0.3077447, 0.2923574], [0.7433288,
+            0.697206, 0.2120531], [0.3180028, 0.3077447, 0.2923574],
+            [0.7204468, 0.6881596, 0.222962], [0.7094759, 0.6838223,
+            0.2281923], [0.3180028, 0.3077447, 0.2923574], [0.7291481,
+            0.6915997, 0.2188137], [0.3180028, 0.3077447, 0.2923574],
+            [0.748085, 0.6990864, 0.2097856], [0.3180028, 0.3077447,
+            0.2923574], [0.749639, 0.6997007, 0.2090447], [0.3180028,
+            0.3077447, 0.2923574], [0.7620313, 0.7046, 0.2031368], [0.3180028,
+            0.3077447, 0.2923574], [0.7679123, 0.706925, 0.2003331],
+            [0.3180028, 0.3077447, 0.2923574], [0.7679123, 0.706925,
+            0.2003331], [0.3180028, 0.3077447, 0.2923574], [0.752831,
+            0.7009627, 0.207523], [0.3180028, 0.3077447, 0.2923574],
+            [0.7478298, 0.6989855, 0.2099073], [0.3180028, 0.3077447,
+            0.2923574], [0.734387, 0.6936709, 0.2163161], [0.3180028,
+            0.3077447, 0.2923574], [0.726529, 0.6905642, 0.2200623],
+            [0.6655906, 0.6639414, 0.2358556], [0.7032458, 0.6813592,
+            0.2311625], [0.7032458, 0.6813592, 0.2311625]],
+        "sample_cell": [
+            -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1,
+            -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1,
+            -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1,
+            30398, 16797, 28994, 15593, 27791, 14590, 26388, 13587, 25385,
+            12784, 24183, 11782, 22980, 10979, 21977, 9977, 20975, 9174, 19972,
+            30371, 18970, 29369, 17968, 28166, 17166, 27164, 16163, 26162,
+            15361, 25160, 14559, 24158, 13757, 23156, 12956, 22354, 12154,
+            21553, 11552, 20551, 10750, 19749, 28548, 18947, 27746, 18146,
+            26745, 17344, 25943, 16743, 24942, 15941, 24140, 15140, 23339,
+            14538, 22537, 13937, 21936, 13136, 21135, 12534, 20334, 28133,
+            19732, 27331, 18931, 26530, 18330, 25729, 17529, 24928, 16927,
+            24127, 16326, 23526, 15725, 22725, 15124, 22124, 14523, 21522,
+            13922, 20721, 13321, 20120, 26920, 19519, 26319, 18919, 25518,
+            18318, 24917, 17717, 24316, 17116, 23515, 16515, 22914, 16114,
+            22314, 15513, 21713, 14912, 21112, 14512, 20511, 13911, 20110,
+            26110, 19510, 25509, 18909, 24908, 18308, 24308, 17907, 23707,
+            17307, 23106, 16906, 22505, 16305, 22105, 15905, 21504, 15304,
+            20903, 14903, 20503, 14503, 19902, 25302, 19501, 24701, 18901,
+            24300, 18500, 23700, 17900, 23299, 17499, 22699, 17099, 22298,
+            16498, 21698, 16097, 21297, 15697, 20696, 15296, 20296, 14896,
+            19895, 24695, 19295, 24295, 18894, 23694, 18494, 23294, 18093,
+            22893, 17693, 22293, 17092, 21892, 16692, 21492, 16291, 21091,
+            15891, 20691, 15491, 20090, 24690, 19690, 24290, 19289, 23889,
+            18889, 23289, 18489, 22888, 18088, 22488, 17688, 22087, 17287,
+            21687, 16887, 21287, 16487, 20886, 16086, 20486, 15886, 20085,
+            24285, 19685, 23885, 19285, 23484, 18884, 23084, 18484, 22684,
+            18084, 22283, 17883, 21883, 17483, 21483, 17083, 21082, 16682,
+            20682, 16282, 20282, 16082, 20081, 23881, 19681, 23481, 19281,
+            23080, 18880, 22680, 18480, 22480, 18280, 22080, 17879, 21679,
+            17479, 21279, 17279, 20879, 16879, 20678, 16478, 20278, 16278,
+            19878, 23478, 19477, 23277, 19277, 22877, 18877, 22477, 18677,
+            22076, 18276, 21876, 17876, 21476, 17676, 21076, 17276, 20875,
+            17075, 20475, 16675, 20075, 16475, 19875, 23274, 19474, 22874,
+            19274, 22674, 18874, 22274, 18674, 21874, 18273, 21673],
+        "sample_cell_gain": [
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+            7.74855267e-12, 5.53093704e-09, 1.29661984e-11, 2.04747108e-09,
+            2.90166141e-10, 3.87699123e-10, 3.48057166e-10, 3.38975265e-10,
+            4.00291938e-10, 1.47053151e-11, 2.33336106e-09, 1.62055733e-11,
+            2.76914669e-09, 1.09483828e-11, 8.04129829e-09, 1.09662565e-11,
+            1.24354962e-08, 1.20000216e-11, 1.3219652e-08, 1.24915234e-11,
+            1.51991433e-08, 1.3701644e-11, 1.03586348e-08, 1.62936487e-11,
+            3.54521235e-09, 2.65313344e-11, 5.00571862e-10, 2.61023633e-11,
+            2.3342054e-11, 5.05399576e-11, 2.68033443e-11, 2.54641759e-11,
+            3.0060749e-11, 2.10529962e-11, 1.72611508e-11, 4.29461533e-09,
+            2.07432526e-11, 2.1802304e-08, 2.38472055e-11, 2.23069918e-08,
+            2.55651299e-11, 2.31267467e-08, 2.74772132e-11, 2.42279175e-08,
+            2.72442936e-11, 2.51540619e-08, 2.481906e-11, 3.6603881e-10,
+            5.30911204e-10, 3.84806437e-10, 5.02349051e-10, 4.70936512e-10,
+            4.88304508e-10, 5.38736611e-10, 4.44885184e-10, 6.10292483e-10,
+            4.07035378e-10, 3.20415985e-11, 3.20247935e-08, 5.94801222e-11,
+            3.14579509e-08, 5.37303466e-11, 3.1918173e-08, 4.70619863e-11,
+            3.35672858e-08, 4.85539317e-11, 3.4814672e-08, 4.71147045e-11,
+            3.62233656e-08, 8.61679728e-10, 5.6631827e-10, 8.57075355e-10,
+            7.08323844e-10, 8.28810409e-10, 8.23151047e-10, 7.98090927e-10,
+            9.29060773e-10, 7.16833259e-10, 1.02006636e-09, 6.44563458e-10,
+            1.09228027e-09, 4.58931808e-08, 6.79308554e-11, 4.65923335e-08,
+            7.45646045e-11, 4.79844466e-08, 9.09364528e-11, 4.98317299e-08,
+            8.09640965e-11, 5.03276105e-08, 1.35947553e-09, 5.31252056e-08,
+            1.41915324e-09, 1.04401487e-09, 1.46250978e-09, 1.26716426e-09,
+            1.44564083e-09, 1.44564083e-09, 1.42635093e-09, 1.59706992e-09,
+            1.36399836e-09, 1.7368218e-09, 6.46748575e-08, 1.82213722e-09,
+            6.65220199e-08, 1.79304349e-09, 6.90408726e-08, 1.25115654e-10,
+            7.22665661e-08, 1.32384978e-10, 7.23834219e-08, 2.06777373e-09,
+            7.6515775e-08, 2.26668018e-09, 8.11150755e-08, 2.32281461e-09,
+            1.93514849e-09, 2.47682563e-09, 2.24888996e-09, 2.5745448e-09,
+            2.5745448e-09, 2.56129584e-09, 2.85029444e-09, 2.30908737e-09,
+            2.82424462e-09, 1.00314637e-07, 2.8773488e-09, 1.06279074e-07,
+            2.90557556e-09, 1.06515174e-07, 2.7553626e-09, 1.13869646e-07,
+            2.97507219e-09, 1.21556354e-07, 3.4177341e-09, 1.20465828e-07,
+            3.83484844e-09, 1.2778014e-07, 4.10719903e-09, 3.80473608e-09,
+            4.58168836e-09, 4.54114479e-09, 4.61098804e-09, 4.64273642e-09,
+            1.04527977e-08, 4.8837574e-09, 1.42974145e-07, 4.97291008e-09,
+            1.57961395e-07, 4.62894834e-09, 1.76885081e-07, 4.52094318e-09,
+            1.79782063e-07, 4.1416226e-09, 1.97282148e-07, 4.76916151e-09,
+            1.92640414e-07, 5.22952082e-09, 2.02840909e-07, 6.3965353e-09,
+            1.94486816e-07, 6.95676627e-09, 2.00682081e-07, 8.19600032e-09,
+            2.0214916e-08, 2.0214916e-08, 9.00109676e-09, 2.14450523e-07,
+            8.18269985e-09, 2.34748995e-07, 7.87176901e-09, 2.63290758e-07,
+            6.97292579e-09, 2.79952815e-07, 6.17560625e-09, 3.26582523e-07,
+            6.08024742e-09, 3.23551973e-07, 6.90703139e-09, 3.42691436e-07,
+            8.32584668e-09, 3.1563826e-07, 1.02696234e-08, 2.86073202e-07,
+            1.27928033e-08, 2.76125689e-07, 1.46458143e-08, 3.6083442e-08,
+            1.84206481e-08, 1.49373403e-08, 3.07617455e-07, 1.27285738e-08,
+            3.54832338e-07, 1.0819015e-08, 4.48741645e-07, 9.64417524e-09,
+            4.85042904e-07, 8.88999629e-09, 5.64453501e-07, 8.48834514e-09,
+            5.5445787e-07, 1.00326547e-08, 5.09670258e-07, 1.24735138e-08,
+            4.79867936e-07, 1.51498458e-08, 4.03128638e-07, 1.85499456e-08,
+            3.36673168e-07, 5.3803312e-08, 2.72561458e-08, 3.48552902e-07,
+            2.18392362e-08, 4.23554837e-07, 1.75964416e-08, 5.37177755e-07,
+            1.46746517e-08, 6.35727872e-07, 1.19924204e-08, 7.08808045e-07,
+            1.08989653e-08, 7.6199359e-07, 1.10563949e-08, 7.43470991e-07,
+            1.34774512e-08, 6.6322616e-07, 1.68716241e-08, 5.66345648e-07,
+            2.12838369e-08, 4.58762116e-07, 2.4051559e-08, 4.4633839e-07,
+            3.10449479e-08, 3.10449479e-08, 4.46535864e-07, 2.4051559e-08,
+            5.10840948e-07, 2.12838369e-08, 6.23165647e-07, 1.68716241e-08,
+            6.6322616e-07, 1.34774512e-08, 7.43470991e-07, 1.21840689e-08,
+            7.7469889e-07, 1.34774512e-08, 6.77575883e-07, 1.46746517e-08,
+            6.35727872e-07, 1.82503364e-08, 5.37177698e-07, 2.28981634e-08,
+            4.87442435e-07, 2.72448037e-08, 3.88572232e-07, 3.48552902e-07,
+            2.72448037e-08, 4.23554837e-07, 5.3803312e-08, 5.10960547e-07,
+            1.95649932e-08, 5.1888793e-07, 1.678643e-08, 5.86667795e-07,
+            1.37300029e-08, 6.21865013e-07, 1.24735138e-08, 6.21865013e-07,
+            1.31187488e-08, 5.35559138e-07, 1.58619748e-08, 5.09670258e-07,
+            1.74047798e-08, 4.46118833e-07, 4.72779256e-08, 4.12706015e-07,
+            3.22976462e-07, 3.27689719e-07, 3.27689719e-07],
+    },
+    "city_cut": {
+        "mean": [0.5205085717933096, 0.5321253763100573, 0.5386381518252933],
+        "counts": {"sky": 99866, "geometry": 227075, "tx": 382,
+                   "rx": 177, "overlay": 0},
+        "sample": [
+            [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.72,
+            0.82, 0.92], [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.72, 0.82,
+            0.92], [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.72, 0.82, 0.92],
+            [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.72,
+            0.82, 0.92], [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.72, 0.82,
+            0.92], [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.72, 0.82, 0.92],
+            [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.72,
+            0.82, 0.92], [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.72, 0.82,
+            0.92], [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.72, 0.82, 0.92],
+            [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.72,
+            0.82, 0.92], [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.72, 0.82,
+            0.92], [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.72, 0.82, 0.92],
+            [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.72,
+            0.82, 0.92], [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.72, 0.82,
+            0.92], [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.72, 0.82, 0.92],
+            [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.72,
+            0.82, 0.92], [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.72, 0.82,
+            0.92], [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.72, 0.82, 0.92],
+            [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.72, 0.82, 0.92],
+            [0.5806102, 0.5618808, 0.5337868], [0.5806102, 0.5618808,
+            0.5337868], [0.5806102, 0.5618808, 0.5337868], [0.72, 0.82, 0.92],
+            [0.5806102, 0.5618808, 0.5337868], [0.72, 0.82, 0.92], [0.72,
+            0.82, 0.92], [0.358404, 0.3468425, 0.3295004], [0.72, 0.82, 0.92],
+            [0.5806102, 0.5618808, 0.5337868], [0.72, 0.82, 0.92], [0.5806102,
+            0.5618808, 0.5337868], [0.72, 0.82, 0.92], [0.5806102, 0.5618808,
+            0.5337868], [0.72, 0.82, 0.92], [0.5806102, 0.5618808, 0.5337868],
+            [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.5806102, 0.5618808,
+            0.5337868], [0.358404, 0.3468425, 0.3295004], [0.5806102,
+            0.5618808, 0.5337868], [0.5806102, 0.5618808, 0.5337868],
+            [0.5806102, 0.5618808, 0.5337868], [0.5806102, 0.5618808,
+            0.5337868], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.72, 0.82, 0.92], [0.3180028, 0.3077447,
+            0.2923574], [0.72, 0.82, 0.92], [0.72, 0.82, 0.92], [0.3180028,
+            0.3077447, 0.2923574], [0.72, 0.82, 0.92], [0.3180028, 0.3077447,
+            0.2923574], [0.72, 0.82, 0.92], [0.3180028, 0.3077447, 0.2923574],
+            [0.72, 0.82, 0.92], [0.3180028, 0.3077447, 0.2923574], [0.72,
+            0.82, 0.92], [0.3180028, 0.3077447, 0.2923574], [0.5806102,
+            0.5618808, 0.5337868], [0.72, 0.82, 0.92], [0.5806102, 0.5618808,
+            0.5337868], [0.358404, 0.3468425, 0.3295004], [0.5806102,
+            0.5618808, 0.5337868], [0.3180028, 0.3077447, 0.2923574],
+            [0.5806102, 0.5618808, 0.5337868], [0.5806102, 0.5618808,
+            0.5337868], [0.358404, 0.3468425, 0.3295004], [0.5806102,
+            0.5618808, 0.5337868], [0.4214106, 0.3558578, 0.2809404], [0.72,
+            0.82, 0.92], [0.4214106, 0.3558578, 0.2809404], [0.72, 0.82,
+            0.92], [0.3180028, 0.3077447, 0.2923574], [0.72, 0.82, 0.92],
+            [0.3180028, 0.3077447, 0.2923574], [0.72, 0.82, 0.92], [0.3180028,
+            0.3077447, 0.2923574], [0.72, 0.82, 0.92], [0.3180028, 0.3077447,
+            0.2923574], [0.5806102, 0.5618808, 0.5337868], [0.4214106,
+            0.3558578, 0.2809404], [0.5806102, 0.5618808, 0.5337868],
+            [0.4214106, 0.3558578, 0.2809404], [0.5806102, 0.5618808,
+            0.5337868], [0.358404, 0.3468425, 0.3295004], [0.5806102,
+            0.5618808, 0.5337868], [0.3180028, 0.3077447, 0.2923574],
+            [0.5806102, 0.5618808, 0.5337868], [0.358404, 0.3468425,
+            0.3295004], [0.3180028, 0.3077447, 0.2923574], [0.5806102,
+            0.5618808, 0.5337868], [0.4214106, 0.3558578, 0.2809404], [0.72,
+            0.82, 0.92], [0.4214106, 0.3558578, 0.2809404], [0.72, 0.82,
+            0.92], [0.5806102, 0.5618808, 0.5337868], [0.72, 0.82, 0.92],
+            [0.5806102, 0.5618808, 0.5337868], [0.72, 0.82, 0.92], [0.5806102,
+            0.5618808, 0.5337868], [0.3180028, 0.3077447, 0.2923574],
+            [0.5806102, 0.5618808, 0.5337868], [0.3180028, 0.3077447,
+            0.2923574], [0.5806102, 0.5618808, 0.5337868], [0.3180028,
+            0.3077447, 0.2923574], [0.4214106, 0.3558578, 0.2809404],
+            [0.3180028, 0.3077447, 0.2923574], [0.3180028, 0.3077447,
+            0.2923574], [0.3180028, 0.3077447, 0.2923574], [0.358404,
+            0.3468425, 0.3295004], [0.3180028, 0.3077447, 0.2923574],
+            [0.358404, 0.3468425, 0.3295004], [0.4214106, 0.3558578,
+            0.2809404], [0.3180028, 0.3077447, 0.2923574], [0.1, 0.7, 0.2],
+            [0.72, 0.82, 0.92], [0.4214106, 0.3558578, 0.2809404], [0.72,
+            0.82, 0.92], [0.5806102, 0.5618808, 0.5337868], [0.72, 0.82,
+            0.92], [0.5806102, 0.5618808, 0.5337868], [0.4214106, 0.3558578,
+            0.2809404], [0.5806102, 0.5618808, 0.5337868], [0.3180028,
+            0.3077447, 0.2923574], [0.5806102, 0.5618808, 0.5337868],
+            [0.3180028, 0.3077447, 0.2923574], [0.3180028, 0.3077447,
+            0.2923574], [0.3180028, 0.3077447, 0.2923574], [0.4214106,
+            0.3558578, 0.2809404], [0.3180028, 0.3077447, 0.2923574],
+            [0.4214106, 0.3558578, 0.2809404], [0.3180028, 0.3077447,
+            0.2923574], [0.358404, 0.3468425, 0.3295004], [0.3180028,
+            0.3077447, 0.2923574], [0.358404, 0.3468425, 0.3295004],
+            [0.4214106, 0.3558578, 0.2809404], [0.3180028, 0.3077447,
+            0.2923574], [0.4214106, 0.3558578, 0.2809404], [0.72, 0.82, 0.92],
+            [0.4214106, 0.3558578, 0.2809404], [0.72, 0.82, 0.92], [0.3180028,
+            0.3077447, 0.2923574], [0.72, 0.82, 0.92], [0.3180028, 0.3077447,
+            0.2923574], [0.5806102, 0.5618808, 0.5337868], [0.3180028,
+            0.3077447, 0.2923574], [0.5806102, 0.5618808, 0.5337868],
+            [0.3180028, 0.3077447, 0.2923574], [0.5806102, 0.5618808,
+            0.5337868], [0.3180028, 0.3077447, 0.2923574], [0.5806102,
+            0.5618808, 0.5337868], [0.4214106, 0.3558578, 0.2809404],
+            [0.5806102, 0.5618808, 0.5337868], [0.4214106, 0.3558578,
+            0.2809404], [0.5806102, 0.5618808, 0.5337868], [0.358404,
+            0.3468425, 0.3295004], [0.3180028, 0.3077447, 0.2923574],
+            [0.3180028, 0.3077447, 0.2923574], [0.4214106, 0.3558578,
+            0.2809404], [0.3180028, 0.3077447, 0.2923574], [0.4214106,
+            0.3558578, 0.2809404], [0.72, 0.82, 0.92], [0.4214106, 0.3558578,
+            0.2809404], [0.72, 0.82, 0.92], [0.5806102, 0.5618808, 0.5337868],
+            [0.5806102, 0.5618808, 0.5337868], [0.5806102, 0.5618808,
+            0.5337868], [0.5806102, 0.5618808, 0.5337868], [0.5806102,
+            0.5618808, 0.5337868], [0.5806102, 0.5618808, 0.5337868],
+            [0.5806102, 0.5618808, 0.5337868], [0.5806102, 0.5618808,
+            0.5337868], [0.5806102, 0.5618808, 0.5337868], [0.5806102,
+            0.5618808, 0.5337868], [0.5806102, 0.5618808, 0.5337868],
+            [0.5806102, 0.5618808, 0.5337868], [0.4214106, 0.3558578,
+            0.2809404], [0.5806102, 0.5618808, 0.5337868], [0.4214106,
+            0.3558578, 0.2809404], [0.4214106, 0.3558578, 0.2809404],
+            [0.4214106, 0.3558578, 0.2809404], [0.4214106, 0.3558578,
+            0.2809404], [0.72, 0.82, 0.92], [0.4214106, 0.3558578, 0.2809404],
+            [0.72, 0.82, 0.92], [0.4214106, 0.3558578, 0.2809404], [0.5806102,
+            0.5618808, 0.5337868], [0.5806102, 0.5618808, 0.5337868],
+            [0.5806102, 0.5618808, 0.5337868], [0.5806102, 0.5618808,
+            0.5337868], [0.5806102, 0.5618808, 0.5337868], [0.5806102,
+            0.5618808, 0.5337868], [0.5806102, 0.5618808, 0.5337868],
+            [0.5806102, 0.5618808, 0.5337868], [0.5806102, 0.5618808,
+            0.5337868], [0.5806102, 0.5618808, 0.5337868], [0.5806102,
+            0.5618808, 0.5337868], [0.5806102, 0.5618808, 0.5337868],
+            [0.5806102, 0.5618808, 0.5337868], [0.5806102, 0.5618808,
+            0.5337868], [0.358404, 0.3468425, 0.3295004], [0.4214106,
+            0.3558578, 0.2809404], [0.4214106, 0.3558578, 0.2809404],
+            [0.4214106, 0.3558578, 0.2809404], [0.4214106, 0.3558578,
+            0.2809404], [0.72, 0.82, 0.92], [0.4214106, 0.3558578, 0.2809404],
+            [0.4214106, 0.3558578, 0.2809404], [0.358404, 0.3468425,
+            0.3295004], [0.3180028, 0.3077447, 0.2923574], [0.5806102,
+            0.5618808, 0.5337868], [0.3180028, 0.3077447, 0.2923574],
+            [0.5806102, 0.5618808, 0.5337868], [0.3180028, 0.3077447,
+            0.2923574], [0.5806102, 0.5618808, 0.5337868], [0.3180028,
+            0.3077447, 0.2923574], [0.5806102, 0.5618808, 0.5337868],
+            [0.3180028, 0.3077447, 0.2923574], [0.5806102, 0.5618808,
+            0.5337868], [0.3180028, 0.3077447, 0.2923574], [0.5806102,
+            0.5618808, 0.5337868], [0.3180028, 0.3077447, 0.2923574],
+            [0.5806102, 0.5618808, 0.5337868], [0.358404, 0.3468425,
+            0.3295004], [0.4214106, 0.3558578, 0.2809404], [0.4214106,
+            0.3558578, 0.2809404], [0.4214106, 0.3558578, 0.2809404],
+            [0.4214106, 0.3558578, 0.2809404], [0.4214106, 0.3558578,
+            0.2809404], [0.4214106, 0.3558578, 0.2809404], [0.4214106,
+            0.3558578, 0.2809404], [0.358404, 0.3468425, 0.3295004],
+            [0.3180028, 0.3077447, 0.2923574], [0.5806102, 0.5618808,
+            0.5337868], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.3180028, 0.3077447, 0.2923574], [0.3180028, 0.3077447,
+            0.2923574], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.3180028, 0.3077447, 0.2923574], [0.3180028, 0.3077447,
+            0.2923574], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.4214106, 0.3558578, 0.2809404],
+            [0.4214106, 0.3558578, 0.2809404], [0.4214106, 0.3558578,
+            0.2809404], [0.4214106, 0.3558578, 0.2809404], [0.4214106,
+            0.3558578, 0.2809404], [0.4214106, 0.3558578, 0.2809404],
+            [0.4214106, 0.3558578, 0.2809404], [0.4214106, 0.3558578,
+            0.2809404], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.3180028, 0.3077447, 0.2923574], [0.3180028, 0.3077447,
+            0.2923574], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.3180028, 0.3077447, 0.2923574], [0.3180028, 0.3077447,
+            0.2923574], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.3180028, 0.3077447, 0.2923574], [0.3180028, 0.3077447,
+            0.2923574], [0.4214106, 0.3558578, 0.2809404], [0.4214106,
+            0.3558578, 0.2809404], [0.4214106, 0.3558578, 0.2809404],
+            [0.4214106, 0.3558578, 0.2809404], [0.4214106, 0.3558578,
+            0.2809404], [0.4214106, 0.3558578, 0.2809404], [0.4214106,
+            0.3558578, 0.2809404], [0.4214106, 0.3558578, 0.2809404],
+            [0.3180028, 0.3077447, 0.2923574], [0.3180028, 0.3077447,
+            0.2923574], [0.3180028, 0.3077447, 0.2923574], [0.3180028,
+            0.3077447, 0.2923574], [0.3180028, 0.3077447, 0.2923574],
+            [0.3180028, 0.3077447, 0.2923574], [0.3180028, 0.3077447,
+            0.2923574], [0.3180028, 0.3077447, 0.2923574]],
+        "sample_tri": [
+            -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1,
+            -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1,
+            -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1,
+            -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, 1335,
+            383, 1323, -1, 1327, -1, -1, 943, -1, 833, -1, 837, -1, 841, -1,
+            844, -1, -1, 368, 1419, 356, 1328, 360, 1312, 415, 1351, -1, 1355,
+            -1, -1, 883, -1, 887, -1, 871, -1, 875, -1, 879, 195, -1, 199,
+            1434, 203, 1362, 222, 1171, 351, 1170, 23, -1, 23, -1, 866, -1,
+            870, -1, 889, -1, 893, 193, 11, 212, 11, 216, 1428, 200, 1345,
+            204, 1277, 397, 1168, 7, -1, 7, -1, 690, -1, 694, -1, 678, 243,
+            682, 227, 701, 231, 26, 251, 1360, 235, 1255, 239, 1257, 22, 1187,
+            22, -1, 22, -1, 688, -1, 692, 18, 676, 242, 680, 226, 735, 230,
+            10, 234, 10, 254, 1270, 238, 1272, 22, 1186, 6, -1, 6, -1, 722,
+            -1, 726, 51, 710, 55, 714, 39, 718, 43, 10, 58, 10, 62, 1265, 237,
+            1185, 21, 1204, 21, -1, 21, -1, 531, 34, 535, 34, 519, 53, 539,
+            57, 523, 57, 527, 61, 25, 45, 9, 21, 9, 21, -1, 21, -1, 5, 33,
+            514, 48, 534, 52, 518, 36, 522, 56, 537, 40, 541, 44, 525, 179, 9,
+            21, 9, 5, -1, 5, 17, 615, 83, 513, 67, 513, 87, 532, 91, 536, 91,
+            536, 95, 540, 79, 524, 181, 9, 5, 9, 5, 1, 5, 1, 617, 82, 512, 66,
+            563, 86, 567, 90, 571, 90, 555, 94, 575, 78, 559, 20, 24, 20, 24,
+            20, 16, 20, 16, 562, 81, 562, 65, 566, 85, 550, 89, 554, 73, 554,
+            93, 558, 77, 557, 20, 24, 20, 8, 20, 16, 20, 16, 561, 80, 545, 64,
+            564, 84, 548, 88],
+    },
+}
+# the map view's rays hit the canyon's triangles
+RT_RENDER_JAX["map"]["sample_tri"] = RT_RENDER_JAX["canyon"]["sample_tri"]
+# phase 33: the Mitsuba bundle of the canyon committed for the loader tests
+MITSUBA_FIXTURE = "tests/data/mitsuba_fixture/street_canyon.xml"
+# phase 34: phase 5's link over torch.distributed ranks on the card (the
+# summed block errors end the 3 dB point before one rank's own would)
+DIST_LINK = dict(max_mc_iter=10, target_block_errors=2000)
+# phase 35: the port's examples at full size, each with its time limit [s]
+EXAMPLES = {"01_uncoded_awgn_ber.py": 180, "02_coded_bler_ldpc_polar.py": 240,
+            "03_mimo_ofdm_cdl.py": 240, "04_rt_coverage_map.py": 180,
+            "05_sys_multicell.py": 120}
 
 
 def rate_band(errors, blocks, n_port):
@@ -3295,12 +4087,7 @@ def rt_city_phase(dev, card):
     t_a, i_a, h_a = accel.nearest_hit_accel(orig, dirs, acc)
     t_d, i_d, h_d = geometry.nearest_hit(orig, dirs, tri)
     same_t = bool(torch.equal(t_a, t_d))
-    # ids where the nearest distance belongs to one triangle only
-    count = torch.zeros(dirs.shape[0], dtype=torch.int64, device=dev)
-    for b in range(0, tri.shape[0], 4096):
-        t_c, hit_c = geometry.moller_trumbore(orig, dirs, tri[b:b + 4096])
-        count += (torch.where(hit_c, t_c, torch.inf) == t_d[:, None]).sum(1)
-    unique = h_d & (count == 1)
+    unique = unique_nearest(orig, dirs, tri, t_d)
     same_id = bool(torch.equal(i_a[unique], i_d[unique]))
     seg = dirs * 60.
     b_a = accel.any_blocking_hit_accel(orig, seg, acc)
@@ -3454,6 +4241,582 @@ def rt_phases(card, results):
           f"{time.perf_counter() - t0:.1f} s")
     sys.stdout.flush()
     results.put({})
+
+
+def render_scene(rt, view):
+    """Phase 32's scene of ``view`` ("canyon", "map", "city_cut", "city")
+    in the package ``rt`` (the port's, or the JAX package's for
+    ``tools/rt_render_ref.py``): its phase's tx and rx, and the camera."""
+    if view in ("canyon", "map"):
+        c = RT_CANYON
+        scene = rt_scene(rt, "simple_street_canyon", c["tx"], c["rx"])
+    else:
+        c = RT_CITY_CUT if view == "city_cut" else RT_CITY
+        scene = rt_scene(rt, rt.make_city(c["nx"], c["ny"],
+                                          subdiv=c["subdiv"]),
+                         c["tx"], c["rx"])
+    pos, look = RT_RENDER["views"]["canyon" if view == "map" else view]
+    cam = rt.Camera("cam", pos)
+    cam.look_at(look)
+    scene.add(cam)
+    return scene
+
+
+def render_map(rt, scene):
+    """Phase 31's radio map of the canyon ``scene``, the overlay of
+    phase 32's "map" view."""
+    c = RT_MAP
+    return rt.RadioMapSolver()(scene, cell_size=c["cell_size"],
+                               size=c["size"], center=c["center"],
+                               max_depth=c["max_depth"],
+                               samples_per_src=c["samples"])
+
+
+def render_stats(img, plain=None):
+    """Per-channel means, pixel-class counts and every
+    ``RT_RENDER["sample_stride"]``-th pixel of a rendered [h, w, 3] image.
+    Sky and markers are the pixels of exactly their colour; ``plain``
+    (the same view without the radio map) marks the overlay's pixels as
+    those that differ from it; geometry is the rest."""
+    from sionna_tpu_torch.rt.render import _SKY, RX_COLOR, TX_COLOR
+    px = np.asarray(img, np.float32).reshape(-1, 3)
+
+    def exactly(color):
+        return int(np.all(px == np.float32(color), axis=-1).sum())
+
+    counts = {"sky": exactly(_SKY), "tx": exactly(TX_COLOR),
+              "rx": exactly(RX_COLOR), "overlay": 0 if plain is None else int(
+                  np.any(px != np.asarray(plain, np.float32).reshape(-1, 3),
+                         axis=-1).sum())}
+    counts["geometry"] = px.shape[0] - sum(counts.values())
+    return {"mean": px.astype(np.float64).mean(0).tolist(), "counts": counts,
+            "sample": px[::RT_RENDER["sample_stride"]].tolist()}
+
+
+def check_render_against_jax(view, stats, hits, triangles, cell_gain=None):
+    """Phase 32's image of ``view`` against JAX's (``RT_RENDER_JAX``):
+    counts, means and sampled pixels; a sampled pixel off by more than the
+    tolerance is excused where its ray hits another triangle than JAX's
+    (``hits``: the port's ids of the sampled rays) on an edge the two
+    share, or, under the radio map, where the card's gain of its map cell
+    (``cell_gain``, at JAX's ``sample_cell``) is more than RT_GAIN_RTOL
+    from JAX's (phase 31's corner and shared-edge cells). Returns the
+    excused pixels."""
+    want = RT_RENDER_JAX[view]
+    n_px = RT_RENDER["resolution"][0] * RT_RENDER["resolution"][1]
+    for name, n in want["counts"].items():
+        if abs(stats["counts"][name] - n) > RT_RENDER_COUNT_SHARE * n_px:
+            raise AssertionError(f"[32] {view}: {stats['counts'][name]} "
+                                 f"{name} pixels against JAX's {n}")
+    err = np.abs(np.subtract(stats["mean"], want["mean"])).max()
+    if not err <= RT_RENDER_MEAN_ATOL:
+        raise AssertionError(f"[32] {view}: channel means {stats['mean']} "
+                             f"against JAX's {want['mean']}")
+    diff = np.abs(np.subtract(stats["sample"], want["sample"])).max(-1)
+    if cell_gain is not None:
+        ref = np.asarray(want["sample_cell_gain"])
+        cell_off = ((np.asarray(want["sample_cell"]) >= 0)
+                    & (np.abs(cell_gain - ref) > RT_GAIN_RTOL * ref))
+    else:
+        cell_off = np.zeros(diff.shape, bool)
+    excused = []
+    for k in np.nonzero(diff > RT_RENDER_PIXEL_ATOL)[0]:
+        a, b = int(hits[k]), int(want["sample_tri"][k])
+        shared = 0 if min(a, b) < 0 else len(
+            set(map(tuple, triangles[a])) & set(map(tuple, triangles[b])))
+        if not cell_off[k] and (a == b or shared < 2):
+            raise AssertionError(
+                f"[32] {view}: sampled pixel {k * RT_RENDER['sample_stride']} "
+                f"{stats['sample'][k]} against JAX's {want['sample'][k]} "
+                f"(triangle {a}, JAX's {b})")
+        excused.append((int(k) * RT_RENDER["sample_stride"], a, b,
+                        float(diff[k])))
+    return excused, err, float(diff[diff <= RT_RENDER_PIXEL_ATOL].max())
+
+
+def unique_nearest(orig, dirs, tri, t_min):
+    """[R] bool: the rays whose nearest distance ``t_min`` belongs to one
+    triangle only (an id is ambiguous on a shared edge), on the card."""
+    from sionna_tpu_torch.rt.geometry import moller_trumbore
+    count = torch.zeros(dirs.shape[0], dtype=torch.int64, device=dirs.device)
+    block = max(64, 32_000_000 // dirs.shape[0])
+    for b in range(0, tri.shape[0], block):
+        t_c, hit_c = moller_trumbore(orig, dirs, tri[b:b + block])
+        count += (torch.where(hit_c, t_c, torch.inf)
+                  == t_min[:, None]).sum(1)
+    return torch.isfinite(t_min) & (count == 1)
+
+
+def rt_render_phase(dev, card):
+    """Phase 32: the renderer at 655 x 500 on the card."""
+    import importlib
+    import sionna_tpu_torch.rt as rt
+    import sionna_tpu_torch.rt.accel as accel
+    import sionna_tpu_torch.rt.geometry as geometry
+    render_mod = importlib.import_module("sionna_tpu_torch.rt.render")
+    res = RT_RENDER["resolution"]
+    n_px = res[0] * res[1]
+    scenes = {v: render_scene(rt, v) for v in ("canyon", "city_cut", "city")}
+    t0 = time.perf_counter()
+    rm = render_map(rt, scenes["canyon"])
+    rm.path_gain.cpu()
+    print(f"    phase 31's radio map for the overlay: "
+          f"{time.perf_counter() - t0:.2f} s")
+    on_card("[32] map", [rm.path_gain], dev)
+
+    def render(view):
+        scene = scenes["canyon" if view == "map" else view]
+        return scene.render(resolution=res,
+                            radio_map=rm if view == "map" else None)
+
+    accel.STATS.reset()
+    t0 = time.perf_counter()
+    images = {"city": render("city")}
+    first = time.perf_counter() - t0
+    st = accel.STATS
+    print(f"    the city's {scenes['city'].num_triangles} triangles: accel "
+          f"build {st.build_s:.3f} s ({st.native_builds} native build, "
+          f"{st.numpy_builds} NumPy; cluster builder compiled in "
+          f"{accel.BVH_BUILDER.build_seconds:.2f} s, g++), the first render "
+          f"{first:.2f} s, {st.chunks} accel ray chunks, {st.repairs} dense "
+          f"repair sweeps")
+    if st.native_builds != 1 or st.numpy_builds != 0 or st.chunks == 0:
+        raise AssertionError("[32] the city's render did not take the "
+                             "natively built accel path")
+    for view in ("canyon", "map", "city_cut"):
+        images[view] = render(view)
+    for view, img in images.items():
+        if img.shape != (res[1], res[0], 3) or img.dtype != np.float32 \
+                or not np.isfinite(img).all() or img.min() < 0 \
+                or img.max() > 1:
+            raise AssertionError(f"[32] {view}: image {img.shape} "
+                                 f"{img.dtype} outside [0, 1]")
+
+    # the canyon (with and without the map) and the cut city against JAX
+    for view in ("canyon", "map", "city_cut"):
+        scene = scenes["canyon" if view == "map" else view]
+        stats = render_stats(images[view],
+                             images["canyon"] if view == "map" else None)
+        orig, dirs = render_mod.camera_rays(scene.cameras["cam"], res, 45.)
+        s = slice(None, None, RT_RENDER["sample_stride"])
+        tri = torch.as_tensor(scene.triangles, dtype=torch.float32,
+                              device=dev)
+        _, idx, hit = geometry.nearest_hit(
+            torch.as_tensor(orig[s], dtype=torch.float32, device=dev),
+            torch.as_tensor(dirs[s], dtype=torch.float32, device=dev), tri)
+        hits = torch.where(hit, idx, -1).cpu().numpy()
+        cell_gain = None
+        if view == "map":
+            cells = np.asarray(RT_RENDER_JAX["map"]["sample_cell"])
+            gain = rm.path_gain[0].double().cpu().numpy().reshape(-1)
+            cell_gain = np.where(cells >= 0, gain[np.maximum(cells, 0)], 0.)
+        excused, mean_err, pix_err = check_render_against_jax(
+            view, stats, hits, scene.triangles, cell_gain)
+        on_map = ""
+        if view == "map":
+            plain = render_stats(images["canyon"])["sample"]
+            under = np.any(np.not_equal(stats["sample"], plain), axis=-1)
+            on_map = f" ({int(under.sum())} of them under the overlay)"
+        print(f"    {view}: pixels {stats['counts']} (JAX "
+              f"{RT_RENDER_JAX[view]['counts']}); channel means within "
+              f"{mean_err:.1e} of JAX's; {len(stats['sample'])} sampled "
+              f"pixels{on_map} within {pix_err:.1e}, {len(excused)} apart "
+              f"(pixel, triangle, JAX's, error) on a shared edge"
+              + (" or a map cell off JAX's" if view == "map" else "")
+              + f" {excused}")
+
+    # the city's accelerated hits against the dense sweep, on the card
+    scene = scenes["city"]
+    orig, dirs = render_mod.camera_rays(scene.cameras["cam"], res, 45.)
+    o = torch.as_tensor(orig, dtype=torch.float32, device=dev)
+    d = torch.as_tensor(dirs, dtype=torch.float32, device=dev)
+    host_tri = scene.triangles.astype(np.float32)
+    tri = torch.as_tensor(host_tri, device=dev)
+    t_a, i_a, h_a = geometry.nearest_hit(
+        o, d, tri, accel=accel.build_accel(host_tri, dev))
+    t0 = time.perf_counter()
+    t_d, i_d, h_d = geometry.nearest_hit(o, d, tri)
+    unique = unique_nearest(o, d, tri, t_d)
+    torch.cuda.synchronize()
+    same = (torch.equal(t_a, t_d) and torch.equal(h_a, h_d)
+            and torch.equal(i_a[unique], i_d[unique]))
+    print(f"    city: the render's {n_px} accelerated rays against the dense "
+          f"sweep on the card ({time.perf_counter() - t0:.1f} s): "
+          f"{int(h_d.sum())} hits, t and hits "
+          f"{'identical' if same else 'DIFFERENT'}, ids equal on the "
+          f"{int(unique.sum())} with a unique nearest t")
+    if not same:
+        raise AssertionError("[32] the city's accelerated hits differ from "
+                             "the dense sweep")
+
+    solves = {}
+    for view in ("canyon", "city", "map"):
+        solves[view] = functools.partial(render, view)
+        t = host_synced_median_s(solves[view])
+        trace, total = render_trace_split(render_mod, solves[view])
+        print(f"    {view}: {t * 1e3:.1f} ms per {res[0]} x {res[1]} render "
+              f"(median of 3, host-synced), {n_px / t / 1e6:.2f} Mrays/s, "
+              f"peak {peak_gib(solves[view]):.2f} GiB; with a device sync "
+              f"around it the trace (nearest_hit) takes {trace * 1e3:.1f} of "
+              f"{total * 1e3:.1f} ms; on {card}")
+    return solves
+
+
+def render_trace_split(render_mod, render):
+    """(seconds in ``nearest_hit``, seconds in all) of one call of
+    ``render``, by the host clock with a device sync around the trace."""
+    acc = []
+    nearest_hit = render_mod.nearest_hit
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return nearest_hit(*a, **k)
+        finally:
+            torch.cuda.synchronize()
+            acc.append(time.perf_counter() - t0)
+
+    render_mod.nearest_hit = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render()
+        total = time.perf_counter() - t0
+    finally:
+        render_mod.nearest_hit = nearest_hit
+    return sum(acc), total
+
+
+def rt_mitsuba_phase(dev, card):
+    """Phase 33: the Mitsuba loader on the card."""
+    import tempfile
+    import sionna_tpu_torch.rt as rt
+    c = RT_CANYON
+    t0 = time.perf_counter()
+    fixture = rt_scene(rt, MITSUBA_FIXTURE, c["tx"], c["rx"])
+    load_s = time.perf_counter() - t0
+    twin = rt_scene(rt, "simple_street_canyon", c["tx"], c["rx"])
+    if not (np.array_equal(fixture.triangles, twin.triangles)
+            and [m.name for m in fixture.triangle_materials]
+            == [m.name for m in twin.triangle_materials]):
+        raise AssertionError("[33] the fixture's triangles differ from the "
+                             "procedural canyon's")
+    kw = dict(max_depth=c["max_depth"], samples_per_src=c["samples"])
+    p_fix, p_twin = rt.PathSolver()(fixture, **kw), rt.PathSolver()(twin, **kw)
+    on_card("[33] paths", [p_fix.a, p_fix.tau], dev)
+    same = all(torch.equal(getattr(p_fix, f), getattr(p_twin, f))
+               for f in ("valid", "tau", "a", "interactions"))
+    want = RT_JAX["canyon"]
+    err = check_rel("[33] fixture gain against JAX", link_gain(p_fix),
+                    want["gain"], RT_GAIN_RTOL)
+    print(f"    fixture ({fixture.num_triangles} triangles, loaded in "
+          f"{load_s * 1e3:.1f} ms): triangles and materials identical to the "
+          f"procedural canyon's; phase 29's solve on the card "
+          f"{'identical' if same else 'DIFFERENT'} (valid, tau, a), valid "
+          f"paths per depth {paths_per_depth(p_fix)} (JAX "
+          f"{want['valid_per_depth']}), gain {err:.1e} from JAX's")
+    if not same or paths_per_depth(p_fix) != want["valid_per_depth"]:
+        raise AssertionError("[33] the fixture's solve differs")
+
+    c = RT_CITY
+    city = rt_scene(rt, rt.make_city(c["nx"], c["ny"], subdiv=c["subdiv"]),
+                    c["tx"], c["rx"])
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = rt.export_mitsuba_xml(city, os.path.join(tmp, "city.xml"))
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = rt.load_scene(path, frequency=city.frequency)
+        load_s = time.perf_counter() - t0
+    # the bundle's vertices: the exporter's (rounded to 1e-9 m, merged,
+    # then float32); 1,458 of the 901,800 coordinates are one float32 ULP
+    # from the city's own float32 geometry on the card
+    if not (np.array_equal(back.triangles, np.round(city.triangles, 9)
+                           .astype(np.float32).astype(np.float64))
+            and [m.name for m in back.triangle_materials]
+            == [m.name for m in city.triangle_materials]):
+        raise AssertionError("[33] the re-imported city's triangles differ")
+    moved = int((back.triangles != city.triangles.astype(np.float32)).sum())
+    back = rt_scene(rt, back, c["tx"], c["rx"])
+    kw = dict(max_depth=c["max_depth"], samples_per_src=c["samples"])
+    p_back, p_city = rt.PathSolver()(back, **kw), rt.PathSolver()(city, **kw)
+    same = all(torch.equal(getattr(p_back, f), getattr(p_city, f))
+               for f in ("valid", "interactions"))
+    valid = p_city.valid[0, 0]
+    tau_err = float(((p_back.tau - p_city.tau)[0, 0][valid].abs()
+                     / p_city.tau[0, 0][valid]).max())
+    a_err = float((p_back.a - p_city.a).abs().max() / p_city.a.abs().max())
+    gain_err = check_rel("[33] re-imported city's gain", link_gain(p_back),
+                         link_gain(p_city), RT_GAIN_RTOL)
+    print(f"    city ({city.num_triangles} triangles): exported in "
+          f"{export_s:.2f} s, the bundle loaded in {load_s:.2f} s; "
+          f"triangles the exporter's float32 vertices ({moved} coordinates "
+          f"one ULP from the city's float32 ones), materials identical; "
+          f"against phase 30's solve on the card: valid paths and "
+          f"interactions {'identical' if same else 'DIFFERENT'} (per depth "
+          f"{paths_per_depth(p_back)}), tau {tau_err:.1e}, |a| {a_err:.1e} "
+          f"of the largest, gain {gain_err:.1e}")
+    if not (same and tau_err <= RT_TAU_RTOL and a_err <= RT_A_RTOL):
+        raise AssertionError("[33] the re-imported city's solve differs")
+
+
+def render_phases(card, results):
+    """Phases 32-33, run in a fresh process by ``main``."""
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    print(f"[32] the renderer at {RT_RENDER['resolution'][0]} x "
+          f"{RT_RENDER['resolution'][1]} on {card}")
+    solves = rt_render_phase(dev, card)
+    print(f"    phase 32: {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    print(f"[33] the Mitsuba loader: {MITSUBA_FIXTURE} and the city's "
+          f"round trip, solved on {card}")
+    rt_mitsuba_phase(dev, card)
+    # torch.profiler last: after a profiler window every launch costs more
+    for name, solve in solves.items():
+        idle, busy, span, n = device_idle_share(solve)
+        print(f"    render {name}: device idle {100 * idle:.1f} % of a "
+              f"{span * 1e3:.1f} ms call ({busy * 1e3:.1f} ms of device "
+              f"time, {n} kernels and copies; torch.profiler) on {card}")
+    print(f"    phase 33: {time.perf_counter() - t1:.1f} s; phases 32-33: "
+          f"{time.perf_counter() - t0:.1f} s")
+    sys.stdout.flush()
+    results.put({})
+
+
+def sim_rank(rank, world, backend, distribute, port, device, results):
+    """One rank of phase 34 on ``device``: phase 5's link through
+    ``sim_ber`` over a ``torch.distributed`` group joined by
+    ``init_multihost``; puts its own counts, the summed counters it saw
+    and its K1 launches on ``results``."""
+    from sionna_tpu_torch.phy.utils import init_multihost
+    os.environ["LOCAL_RANK"] = "0"
+    dev = torch.device(device)
+    config.device = dev
+    init_multihost(f"127.0.0.1:{port}", world, rank, backend=backend)
+    run, _, seen = make_link(dev)
+    snrs = [3.0, 4.0]
+    own = {e: torch.zeros(4, dtype=torch.int64, device=dev) for e in snrs}
+
+    def counted(batch_size, ebno_db):
+        b, b_hat = run(batch_size, ebno_db)
+        ne = b != b_hat
+        own[ebno_db] += torch.stack([
+            ne.sum(), ne.any(dim=-1).sum(),
+            torch.tensor(b.numel(), device=dev),
+            torch.tensor(b.shape[0], device=dev)])
+        return b, b_hat
+
+    summed = {}
+
+    def callback(it, i, ebno, bit_e, blk_e, nb, nblk):
+        summed[i] = [it, int(bit_e[i]), int(blk_e[i]), int(nb[i]),
+                     int(nblk[i])]
+
+    reset_launches()
+    t0 = time.perf_counter()
+    _, bler = sim_ber(counted, snrs, batch_size=LINK["batch"],
+                      max_mc_iter=DIST_LINK["max_mc_iter"],
+                      num_target_block_errors=DIST_LINK["target_block_errors"],
+                      device_iters=1, early_stop=False, verbose=rank == 0,
+                      distribute=distribute, callback=callback)
+    results.put((rank, {
+        "bler": bler.tolist(), "summed": [summed[i] for i in range(2)],
+        "own": [own[e].tolist() for e in snrs], "calls": seen["calls"],
+        "launches": LIFTED_BP_KERNEL.variant_launches.get("f32", 0),
+        "devices": sorted(seen["devices"]),
+        "backend": str(torch.distributed.get_backend()),
+        "seconds": time.perf_counter() - t0}))
+    torch.distributed.destroy_process_group()
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(world, backend, distribute, timeout, device="cuda:0"):
+    """Phase 34's ranks as spawned processes; returns their results in
+    rank order, or raises unless all end with 0 within ``timeout`` s."""
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=sim_rank, args=(r, world, backend, distribute,
+                                                port, device, results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    out = {}
+    try:
+        while len(out) < world and time.monotonic() < deadline:
+            try:
+                rank, res = results.get(timeout=5)
+                out[rank] = res
+            except queue.Empty:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    break
+        for p in procs:
+            p.join(timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world or len(out) != world:
+        raise AssertionError(f"[34] {world} {backend} rank(s): exit codes "
+                             f"{codes}, {len(out)} results in {timeout} s")
+    return [out[r] for r in range(world)]
+
+
+def distributed_phase(card, runs=((2, "gloo", "multihost"),
+                                  (1, "nccl", "all")), device="cuda:0"):
+    """Phase 34: phase 5's link through ``sim_ber`` over torch.distributed
+    ranks on the card: two gloo ranks sharing it, and one NCCL rank (NCCL
+    takes one rank per card, and "multihost" asks for two or more ranks:
+    the group's world through distribute="all")."""
+    for world, backend, distribute in runs:
+        t0 = time.perf_counter()
+        ranks = run_ranks(world, backend, distribute, 240, device)
+        wall = time.perf_counter() - t0
+        r0 = ranks[0]
+        check_link_bands(r0["bler"], f"[34] {world} {backend} rank(s)")
+        for i in range(2):
+            total = np.sum([r["own"][i] for r in ranks], axis=0).tolist()
+            if any(r["summed"][i] != r0["summed"][i] for r in ranks) \
+                    or r0["summed"][i][1:] != [total[0], total[1], total[2],
+                                               total[3]]:
+                raise AssertionError(
+                    f"[34] point {i}: summed counters "
+                    f"{[r['summed'][i] for r in ranks]} against the ranks' "
+                    f"own {[r['own'][i] for r in ranks]}")
+        for rank, r in enumerate(ranks):
+            if r["backend"] != backend \
+                    or r["devices"] != [torch.device(device).type] \
+                    or r["launches"] == 0 or r["launches"] != r["calls"]:
+                raise AssertionError(f"[34] rank {rank}: {r}")
+        # the summed block errors end the 3 dB point on every rank at once,
+        # before one rank's own would have
+        if not (r0["summed"][0][0] < DIST_LINK["max_mc_iter"]
+                and r0["summed"][0][2] >= DIST_LINK["target_block_errors"]
+                and (world == 1 or max(r["own"][0][1] for r in ranks)
+                     < DIST_LINK["target_block_errors"])):
+            raise AssertionError(f"[34] the 3 dB point's stop: "
+                                 f"{r0['summed'][0]}")
+        print(f"    {world} rank(s), {backend}, distribute={distribute!r}: "
+              f"BLER {r0['bler']}; iterations per point "
+              f"{[s[0] for s in r0['summed']]} on every rank; summed counters "
+              f"[bit errors, block errors, bits, blocks] "
+              f"{[s[1:] for s in r0['summed']]} = the sums of the ranks' own; "
+              f"decoder calls = K1 launches per rank "
+              f"{[r['calls'] for r in ranks]}; "
+              f"{max(r['seconds'] for r in ranks):.2f} s of sim_ber, "
+              f"{wall:.1f} s with the processes' start, on {card}")
+
+
+def qam16_ber(ebno_db):
+    """The BER of Gray-labelled 16-QAM over AWGN (per-axis 4-PAM with
+    threshold decisions, exact)."""
+    a = np.sqrt(0.4 * 10 ** (ebno_db / 10))
+    from scipy.special import erfc
+    return 3 / 8 * erfc(a) + 1 / 4 * erfc(3 * a) - 1 / 8 * erfc(5 * a)
+
+
+def sim_rows(text):
+    """The rows of ``sim_ber``'s table in ``text``: (Eb/N0, BER, BLER, bit
+    errors, bits, block errors, blocks)."""
+    rows = []
+    for line in text.splitlines():
+        f = [x.strip() for x in line.split("|")]
+        if len(f) != 9:
+            continue
+        try:
+            rows.append((float(f[0]), float(f[1]), float(f[2]), int(f[3]),
+                         int(f[4]), int(f[5]), int(f[6])))
+        except ValueError:
+            continue
+    return rows
+
+
+def run_example(card, results, path):
+    """Runs the example program ``path`` as ``__main__`` in this fresh
+    process (on the card: no FAST or CPU switch), its standard output
+    captured; puts (the output, the kernels' launches by variant, the
+    calls of ``LDPC5GDecoder``) on ``results``."""
+    import contextlib
+    import io
+    import runpy
+    for k in ("SIONNA_TPU_EXAMPLES_FAST", "SIONNA_TPU_EXAMPLES_CPU"):
+        os.environ.pop(k, None)
+    calls = [0]
+    forward = LDPC5GDecoder.forward
+
+    def counted(self, *args, **kwargs):
+        calls[0] += 1
+        return forward(self, *args, **kwargs)
+
+    LDPC5GDecoder.forward = counted
+    sys.argv = [path]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        runpy.run_path(path, run_name="__main__")
+    results.put((out.getvalue(), {
+        kern.name: dict(kern.variant_launches) for kern in KERNELS},
+        calls[0]))
+
+
+def examples_phase(card):
+    """Phase 35: the port's five examples at full size on the card, each
+    in a fresh process with its time limit."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    for script, limit in EXAMPLES.items():
+        t0 = time.perf_counter()
+        text, launches, calls = run_in_process(
+            run_example, card, limit,
+            os.path.join(root, "sionna_tpu_torch", "examples", script))
+        wall = time.perf_counter() - t0
+        print(f"    {script}: {wall:.1f} s on {card}; last lines:")
+        for line in text.strip().splitlines()[-4:]:
+            print(f"      {line}")
+        rows = sim_rows(text)
+        ran = {k: v for k, v in launches.items() if v}
+        if script.startswith("01"):
+            # per axis 2 bits of one symbol: twice the binomial variance
+            for ebno, ber, _, _, nbits, _, _ in rows:
+                p = qam16_ber(ebno)
+                tol = 5 * np.sqrt(2 * p * (1 - p) / nbits)
+                if not abs(ber - p) <= tol:
+                    raise AssertionError(f"[35] 01: BER {ber} at {ebno} dB, "
+                                         f"closed form {p} +- {tol}")
+            print(f"      BER within 5 standard errors of the closed form at "
+                  f"all {len(rows)} points")
+        if script.startswith("03"):
+            row = next((r for r in rows if r[0] == 8.0), None)
+            if row is None:
+                raise AssertionError("[35] 03: no row at 8 dB")
+            lo, hi = rate_band(*MIMO_JAX[("ul_freq", 8.0)], row[6])
+            print(f"      BLER at 8 dB {row[2]} ({row[5]} of {row[6]} "
+                  f"codewords), the JAX band [{lo:.4f}, {hi:.4f}] "
+                  f"(phase 17's link)")
+            if not lo <= row[2] <= hi:
+                raise AssertionError("[35] 03: BLER at 8 dB outside the "
+                                     "JAX band")
+        # examples 02 and 03 decode with min-sum LDPC: one K2 launch per
+        # decoder call; the others launch no kernel
+        want = ({LIFTED_BP_KERNEL.name: {"f32+minsum": calls}} if calls
+                else {})
+        if script[:2] in ("02", "03") and not calls:
+            raise AssertionError(f"[35] {script}: no LDPC decoder call")
+        print(f"      kernel launches {ran or 'none'} in {calls} LDPC "
+              f"decoder calls")
+        if ran != want:
+            raise AssertionError(f"[35] {script}: launches {ran}, want "
+                                 f"{want}")
 
 
 def run_in_process(target, card, timeout, *args):
@@ -3780,8 +5143,22 @@ def main():
     # phases 29-31 (BASELINE config 4, the ray tracer), likewise
     t0 = time.perf_counter()
     run_in_process(rt_phases, card, 600)
-    print(f"    phases 29-31 took {time.perf_counter() - t0:.1f} s; the "
-          f"script {time.perf_counter() - t_start:.1f} s")
+    print(f"    phases 29-31 took {time.perf_counter() - t0:.1f} s")
+    # phases 32-33 (the renderer, the Mitsuba loader), likewise
+    t0 = time.perf_counter()
+    run_in_process(render_phases, card, 600)
+    print(f"    phases 32-33 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"[34] phase 5's link through sim_ber over torch.distributed ranks "
+          f"(init_multihost; spawned processes) on {card}")
+    distributed_phase(card)
+    print(f"    phase 34 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"[35] the port's examples (sionna_tpu_torch/examples) at full "
+          f"size on {card}")
+    examples_phase(card)
+    print(f"    phase 35 took {time.perf_counter() - t0:.1f} s; the script "
+          f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": name,

@@ -4,8 +4,8 @@
 Element positions are computed on the host with NumPy; the field
 patterns are torch functions of the angles they are given, evaluated by
 the channel coefficient generator. None of these objects has trainable
-parameters. ``PanelArray.show`` (plotting) is not ported yet (ROADMAP.md,
-queue 1 item 22).
+parameters. ``PanelArray.show`` plots the element positions with
+matplotlib, imported when it is called.
 """
 
 import math
@@ -303,6 +303,24 @@ class PanelArray(Object):
             raise ValueError(
                 "This property is not defined with single polarization")
         return self._ant_pos_pol2
+
+    def show(self):
+        """Plots the elements' positions in the y-z plane, per
+        polarization (matplotlib, imported here); returns the figure."""
+        import matplotlib.pyplot as plt
+        fig = plt.figure()
+        pos1 = np.asarray(self._ant_pos_pol1)
+        plt.plot(pos1[:, 1], pos1[:, 2], marker="|",
+                 markeredgecolor="red", markersize=20, linestyle="None")
+        if self._polarization == "dual":
+            pos2 = np.asarray(self._ant_pos_pol2)
+            plt.plot(pos2[:, 1], pos2[:, 2], marker="_",
+                     markeredgecolor="black", markersize=20,
+                     linestyle="None")
+        plt.xlabel("y (m)")
+        plt.ylabel("z (m)")
+        plt.title("Panel Array")
+        return fig
 
     def numpy_structure(self):
         """The element positions (in metres) and the antenna indices of

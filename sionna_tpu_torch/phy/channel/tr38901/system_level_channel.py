@@ -11,6 +11,7 @@ which computes the CIR deterministically (the tests feed it the JAX
 package's draws). Step 11 is ``ChannelCoefficientsGenerator``.
 """
 
+import numpy as np
 import torch
 
 from ..channel_model import ChannelModel
@@ -210,6 +211,32 @@ class SystemLevelChannel(ChannelModel):
                             + (1,) * (h.dim() - gain.dim()))
         return h * gain.to(self.cdtype)
 
+
+    def show_topology(self, bs_index=0, batch_index=0):
+        """3D scatter plot of the network topology: the BSs, and the UTs
+        indoor, in LoS and in NLoS of BS ``bs_index`` (matplotlib,
+        imported here); returns the figure."""
+        import matplotlib.pyplot as plt
+        sc = self._scenario
+        indoor = np.asarray(sc.indoor)[batch_index]
+        los = np.asarray(sc.los)[batch_index, bs_index]
+        ut_loc = np.asarray(sc.ut_loc)[batch_index]
+        bs_loc = np.asarray(sc.bs_loc)[batch_index]
+        fig = plt.figure()
+        ax = fig.add_subplot(projection="3d")
+        ax.scatter(bs_loc[:, 0], bs_loc[:, 1], bs_loc[:, 2], c="k",
+                   label="BS", depthshade=False)
+        for sel, c, lbl in ((indoor, "b", "UT Indoor"),
+                            (los & ~indoor, "r", "UT LoS"),
+                            (~los & ~indoor, "y", "UT NLoS")):
+            pts = ut_loc[sel]
+            ax.scatter(pts[:, 0], pts[:, 1], pts[:, 2], c=c, label=lbl,
+                       depthshade=False)
+        ax.set_xlabel("x [m]")
+        ax.set_ylabel("y [m]")
+        ax.set_zlabel("z [m]")
+        plt.legend()
+        return fig
 
 class UMa(SystemLevelChannel):
     """Urban macrocell (UMa) channel model."""

@@ -88,6 +88,23 @@ class Config:
             self._generators[device] = g
         return self._generators[device]
 
+    def fork(self, rank):
+        """Splits the random streams into one per ``rank``: the NumPy
+        stream and the torch generators of the CPU, of :attr:`device` and
+        of every device drawn on so far are each reseeded from one draw
+        of their own state and ``rank``. Processes whose streams were
+        equal (one ``seed``) draw different numbers afterwards, and a run
+        stays reproducible from ``seed``."""
+        gens = {id(g): g for g in map(self.generator, {
+            torch.device("cpu"), self._device, *self._generators})}
+        for g in gens.values():
+            s = int(torch.randint(0, 2 ** 62, (1,), generator=g,
+                                  device=g.device))
+            g.manual_seed(int(np.random.SeedSequence([s, rank])
+                              .generate_state(1, np.uint64)[0]))
+        s = int(self.np_rng.integers(2 ** 62))
+        self._np_rng = np.random.default_rng([s, rank])
+
     @property
     def seed(self):
         """int | None : Global seed; setting it reseeds all RNG streams"""

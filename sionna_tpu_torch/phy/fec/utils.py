@@ -3,9 +3,9 @@
 PyTorch counterpart of ``sionna_tpu/phy/fec/utils.py``: host-side NumPy
 for code algebra and I/O (GF(2) elimination, generator/parity-check
 conversion, alist files, the example codes), torch for the LLR source,
-the J-function and the tensor bit helpers. The example codes are read
-from the JAX package's ``example_codes.npy``, by path. The EXIT-chart
-plotting helpers are not ported yet.
+the J-function and the tensor bit helpers, matplotlib (imported inside
+each function) for the EXIT charts. The example codes are read from the
+JAX package's ``example_codes.npy``, by path.
 """
 
 import os
@@ -18,7 +18,7 @@ from ..config import config
 from .ldpc.encoding import _CODES_DIR
 
 __all__ = ["GaussianPriorSource", "llr2mi", "j_fun", "j_fun_inv",
-           "get_exit_analytic", "load_parity_check_examples", "bin2int",
+           "plot_trajectory", "plot_exit_chart", "get_exit_analytic", "load_parity_check_examples", "bin2int",
            "int2bin", "bin2int_torch", "int2bin_torch", "bin2int_tf",
            "int2bin_tf", "alist2mat", "load_alist", "make_systematic",
            "gm2pcm", "pcm2gm", "verify_gm_pcm", "generate_reg_ldpc",
@@ -90,6 +90,47 @@ def j_fun_inv(mi):
     mi = torch.clamp(_as_tensor(mi), 1e-10, 1.)
     mu = 0.5 * ((-1 / _H1) * torch.log2(1 - mi ** (1 / _H3))) ** (1 / _H2)
     return torch.clamp(mu, max=20)
+
+
+def _host(x):
+    """A tensor (on any device) or array-like as a NumPy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def plot_trajectory(plot, mi_v, mi_c, ebno=None):
+    """Adds a decoding trajectory to the EXIT chart ``plot``: the
+    staircase (v0, 0), (v0, c0), (v1, c0), (v1, c1), ... through the
+    mutual information of the VN (``mi_v``) and CN (``mi_c``) messages
+    per iteration. (The JAX package's version draws 2n - 1 x values
+    against 2n y values, which matplotlib refuses.)"""
+    if len(mi_v) != len(mi_c):
+        raise ValueError("mi_v and mi_c must have the same length")
+    x = np.repeat(_host(mi_v), 2)
+    y = np.concatenate([[0], np.repeat(_host(mi_c), 2)[:-1]])
+    label = f"Trajectory @ {ebno} dB" if ebno is not None \
+        else "Trajectory"
+    plot.plot(x, y, "-", linewidth=2, label=label)
+    plot.legend()
+
+
+def plot_exit_chart(mi_a=None, mi_ev=None, mi_ec=None,
+                    title="EXIT-Chart"):
+    """Plots the EXIT curves of the VN and CN decoders (matplotlib,
+    imported here); returns ``matplotlib.pyplot`` to draw on."""
+    import matplotlib.pyplot as plt
+    plt.subplots(figsize=(8, 8))
+    plt.title(title)
+    plt.xlabel("I_a (VND) / I_e (CND)")
+    plt.ylabel("I_e (VND) / I_a (CND)")
+    plt.grid(True)
+    if mi_a is not None and mi_ev is not None:
+        plt.plot(_host(mi_a), _host(mi_ev), label="VND")
+    if mi_a is not None and mi_ec is not None:
+        plt.plot(_host(mi_ec), _host(mi_a), label="CND")
+    plt.legend()
+    return plt
 
 
 def get_exit_analytic(pcm, ebno_db):

@@ -176,6 +176,28 @@ class Constellation(Block):
             points = torch.complex(points.real / norm, points.imag / norm)
         return points
 
+    def show(self, labels=True, figsize=(7, 7)):
+        """Scatter plot of the constellation (matplotlib, imported
+        here); returns the figure."""
+        import matplotlib.pyplot as plt
+        pts = self.points.detach().cpu().numpy()
+        maxval = np.max(np.abs(pts)) * 1.05
+        fig = plt.figure(figsize=figsize)
+        ax = fig.add_subplot(111)
+        plt.xlim(-maxval, maxval)
+        plt.ylim(-maxval, maxval)
+        plt.scatter(np.real(pts), np.imag(pts))
+        ax.set_aspect("equal", adjustable="box")
+        plt.xlabel("Real Part")
+        plt.ylabel("Imaginary Part")
+        plt.grid(True, which="both", axis="both")
+        plt.title("Constellation Plot")
+        if labels:
+            for j, p in enumerate(pts):
+                plt.annotate(np.binary_repr(j, self.num_bits_per_symbol),
+                             (np.real(p), np.imag(p)))
+        return fig
+
     @staticmethod
     def check_or_create(*, constellation_type=None, num_bits_per_symbol=None,
                         constellation=None, precision=None, device=None):

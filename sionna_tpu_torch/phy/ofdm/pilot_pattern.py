@@ -78,6 +78,25 @@ class PilotPattern(Object):
     def pilots(self, v):
         self._pilots = np.asarray(v, self.np_cdtype)
 
+    def show(self, tx_ind=None, stream_ind=None, show_pilot_ind=False):
+        """One figure of the pilot mask per (transmitter, stream)
+        (matplotlib, imported here); returns the list of figures."""
+        import matplotlib.pyplot as plt
+        tx_ind = range(self.num_tx) if tx_ind is None else [tx_ind]
+        stream_ind = range(self.num_streams_per_tx) \
+            if stream_ind is None else [stream_ind]
+        figs = []
+        for i in tx_ind:
+            for j in stream_ind:
+                fig, ax = plt.subplots()
+                ax.imshow(np.transpose(self._mask[i, j]),
+                          origin="lower", aspect="auto")
+                ax.set_title(f"TX {i} - Stream {j}")
+                ax.set_xlabel("OFDM Symbol")
+                ax.set_ylabel("Subcarrier")
+                figs.append(fig)
+        return figs
+
     def numpy_structure(self):
         """The pattern as NumPy arrays, for
         :func:`~sionna_tpu_torch.phy.utils.interop.load_numpy_state`."""

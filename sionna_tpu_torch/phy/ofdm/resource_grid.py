@@ -172,6 +172,19 @@ class ResourceGrid(Object):
             [gc_l, mask[..., :split_ind], dc, mask[..., split_ind:],
              gc_r], -1)
 
+    def show(self, tx_ind=0, tx_stream_ind=0):
+        """The grid's resource-element types (data, pilot, guard, DC) of
+        one stream (matplotlib, imported here); returns the figure."""
+        import matplotlib.pyplot as plt
+        grid = self.build_type_grid()[tx_ind, tx_stream_ind]
+        fig, ax = plt.subplots()
+        cmap = plt.cm.get_cmap("tab10", 4) if hasattr(plt.cm, "get_cmap") \
+            else "tab10"
+        ax.imshow(grid.T, origin="lower", aspect="auto", cmap=cmap)
+        ax.set_xlabel("OFDM Symbol")
+        ax.set_ylabel("Subcarrier")
+        return fig
+
 
 class ResourceGridMapper(Block):
     """Maps data symbols (+ pilots) onto the resource grid.

@@ -4,7 +4,7 @@ The taps are computed on the host by the JAX package's NumPy loops
 (float32, its special points kept exactly) and kept on the block's
 device as a buffer; a call windows and normalizes them there and
 convolves (``signal.utils.convolve``: real ``conv1d`` calls). ``show()``
-waits for the plotting slice (ROADMAP.md queue 1 item 22).
+plots the response with matplotlib, imported when it is called.
 """
 
 import numpy as np
@@ -114,6 +114,25 @@ class Filter(Block):
         if conjugate and h.is_complex():
             h = torch.conj(h)
         return h
+
+    def show(self, response="impulse", scale="lin"):
+        """Plots the impulse or the magnitude response of the filter
+        (matplotlib, imported here) into a new figure."""
+        import matplotlib.pyplot as plt
+        h = self._effective_coefficients().cpu().numpy()
+        plt.figure()
+        if response == "impulse":
+            plt.plot(self.sampling_times, np.real(h))
+            plt.xlabel("Time (symbols)")
+        else:
+            n = 1024
+            spec = np.abs(np.fft.fftshift(np.fft.fft(h, n)))
+            f = np.fft.fftshift(np.fft.fftfreq(n)) * self.samples_per_symbol
+            if scale == "db":
+                spec = 20 * np.log10(np.maximum(spec, 1e-12))
+            plt.plot(f, spec)
+            plt.xlabel("Frequency (1/symbol duration)")
+        plt.grid(True)
 
     @property
     def aclr(self):

@@ -3,7 +3,7 @@
 The coefficients are generated on the host in NumPy, as in the JAX
 package, and kept on the block's device as a buffer, regenerated only
 when a call brings a new length: a call copies nothing to the device.
-``show()`` waits for the plotting slice (ROADMAP.md queue 1 item 22).
+``show()`` plots them with matplotlib, imported when it is called.
 """
 
 import numpy as np
@@ -60,6 +60,26 @@ class Window(Block):
                 raise ValueError("Window length mismatch.")
             self.coefficients = gen(length)
         return self._w
+
+    def show(self, samples_per_symbol, domain="time", scale="lin"):
+        """Plots the window in time or its magnitude spectrum
+        (matplotlib, imported here) into a new figure."""
+        import matplotlib.pyplot as plt
+        w = self._coefficients
+        plt.figure()
+        if domain == "time":
+            n = len(w)
+            t = (np.arange(n) - (n - 1) / 2) / samples_per_symbol
+            plt.plot(t, w)
+            plt.xlabel("Time (symbols)")
+        else:
+            spec = np.fft.fftshift(np.abs(np.fft.fft(w, 1024)))
+            f = np.fft.fftshift(np.fft.fftfreq(1024)) * samples_per_symbol
+            if scale == "db":
+                spec = 20 * np.log10(np.maximum(spec, 1e-12))
+            plt.plot(f, spec)
+            plt.xlabel("Frequency (1/symbol duration)")
+        plt.grid(True)
 
     def forward(self, x):
         w = self._coeffs_for(x.shape[-1]).to(x.device)

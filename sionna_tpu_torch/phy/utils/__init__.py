@@ -15,7 +15,8 @@ from .misc import (ebnodb2no, hard_decisions, complex_normal, lin_to_db,
                    SplineGriddataInterpolation, MCSDecoder, TransportBlock,
                    SingleLinkChannel)
 from .numerics import expand_bound, bisection_method
-from .sim import sim_ber
+from .sim import sim_ber, init_multihost
+from .plotting import plot_ber, PlotBER
 from .interop import load_numpy_state
 from .profiling import Profiler
 from .linalg import inv_cholesky, matrix_pinv

@@ -1,15 +1,23 @@
 """Monte-Carlo BER/BLER simulation loop.
 
-PyTorch counterpart of ``sionna_tpu/phy/utils/sim.py`` on one device. A
-Python loop runs the MC iterations; error counters stay on the device of
-the model's output and are read by the host once per chunk of
-``device_iters`` iterations, where the stopping conditions are checked
-and the checkpoint (if any) is written, as the JAX version polls its
-fused chunks.
+PyTorch counterpart of ``sionna_tpu/phy/utils/sim.py``. A Python loop
+runs the MC iterations; error counters stay on the device of the model's
+output and are read by the host once per chunk of ``device_iters``
+iterations, where the stopping conditions are checked and the checkpoint
+(if any) is written, as the JAX version polls its fused chunks.
 
 ``mc_fun(batch_size, ebno_db)`` takes a Python float ``ebno_db`` and
 returns ``(b, b_hat)``; it draws its own random numbers (from its
 blocks' generators or ``config.generator``).
+
+Data parallelism (JAX: ``shard_map`` over a device mesh, counters
+``psum``-reduced) is one process per GPU here: launch the script with
+``torchrun --nproc_per_node=N``, call :func:`init_multihost` in each
+process and pass ``distribute="multihost"`` (or ``"all"``). Each rank
+then runs ``batch_size / world_size`` examples per iteration from its
+own random streams, and the four counters are summed over the ranks by
+one ``all_reduce`` per chunk, so every rank takes the same stopping
+decisions.
 """
 
 import os
@@ -17,10 +25,81 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..config import config
 from .misc import hard_decisions
 
-__all__ = ["sim_ber"]
+__all__ = ["sim_ber", "init_multihost"]
+
+_TORCHRUN = ("launch one process per GPU with torchrun --nproc_per_node=N, "
+             "call sionna_tpu_torch.phy.utils.init_multihost() in each and "
+             "pass distribute='multihost' (or 'all')")
+
+
+def _group_initialized():
+    return dist.is_available() and dist.is_initialized()
+
+
+def _resolve_world(distribute):
+    """The number of ranks that share a sweep: None for one process (no
+    collective), else the initialized group's world size."""
+    if distribute is None:
+        return None
+    if distribute == "all":
+        if _group_initialized():
+            return dist.get_world_size()
+        visible = torch.cuda.device_count() \
+            if config.device.type == "cuda" else 1
+        if visible <= 1:
+            return None
+        raise ValueError(
+            f"distribute='all' over {visible} visible GPUs needs one process "
+            f"per GPU: {_TORCHRUN}")
+    if distribute == "multihost":
+        if not _group_initialized() or dist.get_world_size() < 2:
+            raise RuntimeError(
+                "distribute='multihost' requires an initialized "
+                "torch.distributed group of two or more ranks: "
+                + _TORCHRUN)
+        return dist.get_world_size()
+    raise ValueError(
+        f"Unsupported distribute argument: {distribute!r}. A device mesh or "
+        f"a device list has no one-process counterpart in PyTorch: "
+        f"{_TORCHRUN}")
+
+
+def init_multihost(coordinator_address=None, num_processes=None,
+                   process_id=None, **kwargs):
+    """Joins this process to the ``torch.distributed`` group that
+    ``sim_ber(distribute="multihost")`` sums its counters over.
+
+    ``coordinator_address`` ("host:port" of rank 0) gives a ``tcp://``
+    rendezvous; without it the ``env://`` one of ``torchrun`` (its
+    ``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK``).
+    ``num_processes`` and ``process_id`` default to ``WORLD_SIZE`` and
+    ``RANK``. The backend is NCCL when ``config.device`` is a GPU and
+    gloo on the CPU; ``backend=`` overrides it, and the other keywords
+    go to ``torch.distributed.init_process_group``. On a GPU the
+    process's card is pinned to ``LOCAL_RANK`` (default 0) first. Every
+    process must then run the same sweep (the same ``config.seed``)."""
+    cuda = config.device.type == "cuda"
+    backend = kwargs.pop("backend", "nccl" if cuda else "gloo")
+    if coordinator_address is None:
+        init_method = "env://"
+    elif "://" in coordinator_address:
+        init_method = coordinator_address
+    else:
+        init_method = f"tcp://{coordinator_address}"
+    if num_processes is None:
+        num_processes = int(os.environ.get("WORLD_SIZE", -1))
+    if process_id is None:
+        process_id = int(os.environ.get("RANK", -1))
+    if cuda:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=int(num_processes),
+                            rank=int(process_id), **kwargs)
 
 
 def sim_ber(mc_fun, ebno_dbs, batch_size, max_mc_iter,
@@ -59,15 +138,31 @@ def sim_ber(mc_fun, ebno_dbs, batch_size, max_mc_iter,
     :class:`~sionna_tpu_torch.phy.utils.Profiler`; each chunk runs in
     its phase "compile" (the first chunk of each length) or "mc_chunk",
     and reading the counters syncs the device inside the phase.
+
+    ``distribute``: None (this process alone), ``"multihost"`` (the
+    initialized ``torch.distributed`` group, two or more ranks; see
+    :func:`init_multihost`) or ``"all"`` (the group if one is
+    initialized, else this process when it sees one device). With a
+    group, ``batch_size`` must divide by its world size; each rank runs
+    its share from its own streams (``config.fork(rank)``), the counters
+    are summed over the ranks, only rank 0 prints the table and writes
+    the checkpoint, and a failed collective raises.
     """
     if graph_mode not in (None, "graph", "xla"):
         raise ValueError("graph_mode must be None, 'graph' or 'xla'")
     if precision not in (None, "single", "double"):
         raise ValueError("precision must be 'single' or 'double'")
-    if distribute is not None:
-        raise NotImplementedError(
-            "sim_ber(distribute=...) is not ported yet (multi-GPU "
-            "through torch.distributed): see ROADMAP.md, queue 1 item 22")
+    world = _resolve_world(distribute)
+    rank = 0
+    if world is not None:
+        if batch_size % world != 0:
+            raise ValueError(
+                f"batch_size ({batch_size}) must be divisible by the number "
+                f"of ranks ({world})")
+        batch_size //= world
+        rank = dist.get_rank()
+        config.fork(rank)
+        verbose = verbose and rank == 0
     ebno_dbs = np.atleast_1d(np.asarray(ebno_dbs, np.float64))
     num_points = len(ebno_dbs)
 
@@ -108,7 +203,7 @@ def sim_ber(mc_fun, ebno_dbs, batch_size, max_mc_iter,
                   "sweep; starting fresh")
 
     def save_checkpoint():
-        if checkpoint_path is None:
+        if checkpoint_path is None or rank != 0:
             return
         tmp = checkpoint_path + ".tmp.npz"
         np.savez(tmp, ebno_dbs=ebno_dbs, bit_errors=bit_errors,
@@ -124,7 +219,8 @@ def sim_ber(mc_fun, ebno_dbs, batch_size, max_mc_iter,
         print("-" * 126)
 
     def run_chunk(ebno_db, n):
-        """n MC iterations; returns the four counters, read once."""
+        """n MC iterations; returns the four counters (summed over the
+        ranks), read once."""
         errs = None
         nb = nblk = 0
         for _ in range(n):
@@ -136,8 +232,14 @@ def sim_ber(mc_fun, ebno_dbs, batch_size, max_mc_iter,
             errs = e if errs is None else errs + e
             nb += b.numel()
             nblk += b.numel() // b.shape[-1]
-        bit_e, blk_e = errs.tolist()
-        return bit_e, blk_e, nb, nblk
+        if world is None:
+            return errs.tolist() + [nb, nblk]
+        counts = torch.cat([errs, torch.tensor([nb, nblk],
+                                               device=errs.device)])
+        if dist.get_backend() != "nccl":
+            counts = counts.cpu()
+        dist.all_reduce(counts)
+        return counts.tolist()
 
     stop_sweep = False
     interrupted = False

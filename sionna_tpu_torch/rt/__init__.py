@@ -4,8 +4,8 @@ Scenes are host NumPy triangle soups; a solver moves the geometry to its
 device (``config.device`` by default, the card) once per solve, and the
 compute path (ray-triangle intersection, the clustered acceleration
 structure, image-method refinement, polarized field transfer) runs there
-as plain torch. The renderer and the Mitsuba loader are not ported yet
-(ROADMAP.md queue 1, item 21 (c))."""
+as plain torch; the renderer casts its camera rays through the same
+intersection code. Mitsuba 3 XML bundles load and export on the host."""
 
 from .scene import (Scene, Transmitter, Receiver, Camera, load_scene,
                     scene, make_city)
@@ -17,3 +17,6 @@ from .scattering_pattern import (ScatteringPattern, LambertianPattern,
                                  BackscatteringPattern)
 from .solver import PathSolver, Paths
 from .radio_map import RadioMapSolver, RadioMap
+from .render import render
+from .mitsuba_loader import (load_ply, load_mitsuba_xml,
+                             export_mitsuba_xml)

@@ -116,10 +116,20 @@ class RadioMap:
         return pos, sel
 
     def show(self, metric="path_gain", tx=0):
-        """Not ported yet: plotting is ROADMAP.md queue 1, item 22."""
-        raise NotImplementedError(
-            "RadioMap.show is not ported yet (ROADMAP.md queue 1, item 22: "
-            "plotting)")
+        """Plots a metric in dB over the grid (matplotlib, imported
+        here); returns the figure."""
+        import matplotlib.pyplot as plt
+        if metric == "path_gain":
+            val = self.path_gain[tx]
+        elif metric == "rss":
+            val = self.rss[tx]
+        else:
+            val = self.sinr
+        fig, ax = plt.subplots()
+        db = 10. * np.log10(np.maximum(val.cpu().numpy(), 1e-30))
+        im = ax.imshow(db, origin="lower")
+        fig.colorbar(im, ax=ax, label=f"{metric} [dB]")
+        return fig
 
 
 class RadioMapSolver:

@@ -8,8 +8,9 @@ NumPy; a solver moves it to its device once per solve.
 
 Built-in scenes are procedural (box, simple_street_canyon,
 simple_reflector, simple_wedge, double_reflector, etoile, city_grid);
-external meshes load from Wavefront OBJ files. Rendering and the Mitsuba
-XML loader are not ported yet (ROADMAP.md queue 1, item 21 (c)).
+external scenes load from Mitsuba 3 XML bundles (mitsuba_loader.py) and
+Wavefront OBJ files. :meth:`Scene.render` ray-casts an RGB image
+(render.py).
 """
 
 import copy
@@ -58,8 +59,8 @@ class Receiver(_RadioDevice):
 
 
 class Camera(_RadioDevice):
-    """Camera for scene rendering; point it with ``look_at`` (the
-    renderer itself is not ported yet: ROADMAP.md item 21 (c))."""
+    """Camera for scene rendering; point it with ``look_at`` and pass
+    it to :meth:`Scene.render`."""
 
 
 class Scene:
@@ -195,18 +196,26 @@ class Scene:
     def bandwidth(self, value):
         self._bandwidth = float(value)
 
-    def render(self, *args, **kwargs):
-        """Not ported yet: ROADMAP.md queue 1, item 21 (c) (the
-        ray-cast renderer)."""
-        raise NotImplementedError(
-            "Scene.render is not ported yet (ROADMAP.md queue 1, item 21 "
-            "(c))")
+    def render(self, camera=None, resolution=(320, 240), fov=45.,
+               radio_map=None, rm_metric="path_gain", rm_vmin=None,
+               rm_vmax=None, rm_tx=0, clip_at=None):
+        """Ray-cast RGB rendering of the scene (see
+        :func:`~sionna_tpu_torch.rt.render.render`): a NumPy [h, w, 3]
+        float32 image. ``radio_map`` overlays a :class:`RadioMap` on its
+        measurement plane; ``clip_at`` removes geometry above that
+        height [m] so interiors stay visible (upstream Scene.render
+        kwargs). The rays are traced on ``config.device``."""
+        from .render import render as _render
+        return _render(self, camera, resolution=resolution, fov=fov,
+                       radio_map=radio_map, rm_metric=rm_metric,
+                       rm_vmin=rm_vmin, rm_vmax=rm_vmax, rm_tx=rm_tx,
+                       clip_at=clip_at)
 
-    def preview(self, *args, **kwargs):
-        """Not ported yet: ROADMAP.md queue 1, item 21 (c)."""
-        raise NotImplementedError(
-            "Scene.preview is not ported yet (ROADMAP.md queue 1, item 21 "
-            "(c))")
+    def preview(self, **kwargs):
+        """Static stand-in for the upstream interactive 3D preview
+        widget: renders the same view via :meth:`render` (an
+        interactive viewer needs a notebook frontend)."""
+        return self.render(**kwargs)
 
     def __repr__(self):
         return (f"Scene(name={self.name!r}, "
@@ -446,19 +455,22 @@ def load_obj(path, default_material="itu_concrete"):
 
 def load_scene(name="empty", frequency=3.5e9,
                default_material="itu_concrete"):
-    """Loads a built-in procedural scene by name, or a Wavefront OBJ
-    mesh by path (API parity with sionna.rt.load_scene). Mitsuba 3 XML
-    bundles are not ported yet (ROADMAP.md queue 1, item 21 (c))."""
+    """Loads a built-in procedural scene by name, or an external
+    scene file by path (API parity with sionna.rt.load_scene):
+    Mitsuba 3 XML bundles (the upstream munich / etoile /
+    simple_street_canyon asset format: shapes, BSDF -> material
+    mapping, to_world transforms, binary/ascii PLY meshes; see
+    mitsuba_loader.py) and Wavefront OBJ meshes."""
     if name in _BUILTIN_SCENES:
         sc = _BUILTIN_SCENES[name]()
         sc.frequency = float(frequency)
         return sc
     if os.path.isfile(name):
         if name.lower().endswith(".xml"):
-            raise NotImplementedError(
-                "Mitsuba XML scenes are not ported yet (ROADMAP.md queue "
-                "1, item 21 (c)); export the mesh as OBJ")
-        triangles, mats = load_obj(name, default_material)
+            from .mitsuba_loader import load_mitsuba_xml
+            triangles, mats = load_mitsuba_xml(name, default_material)
+        else:
+            triangles, mats = load_obj(name, default_material)
         mats = [m if m in ITU_MATERIALS else default_material
                 for m in mats]
         return Scene(triangles=triangles, material_names=mats,

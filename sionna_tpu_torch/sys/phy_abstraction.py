@@ -391,6 +391,44 @@ class PHYAbstraction(Block):
                             "Keys must be ['CBS', 'SNR_db']")
         return True
 
+    def plot(self, plot_subset="all", show=True, save_path=None):
+        """Plots the SINR-to-BLER tables, one figure per MCS (matplotlib,
+        imported here), saving each under ``save_path`` if given; returns
+        the saved files' names."""
+        import matplotlib.pyplot as plt
+        fignames = []
+        if plot_subset == "all":
+            plot_subset = self._bler_table
+        for cat, cat_tab in plot_subset["category"].items():
+            for tab, tab_tab in cat_tab["index"].items():
+                for mcs in to_list(tab_tab["MCS"]):
+                    try:
+                        mcs_tab = self._bler_table["category"][cat][
+                            "index"][tab]["MCS"][mcs]
+                    except KeyError:
+                        continue
+                    fig, ax = plt.subplots()
+                    for cbs, leaf in mcs_tab["CBS"].items():
+                        ax.semilogy(mcs_tab["SNR_db"], leaf["BLER"],
+                                    label=f"code block size={cbs}")
+                    ax.set_title(f"MCS {mcs} (category {cat}, "
+                                 f"table {tab})")
+                    ax.legend()
+                    ax.grid(True)
+                    ax.set_xlabel("SNR [dB]")
+                    ax.set_ylabel("BLER")
+                    if save_path is not None:
+                        os.makedirs(save_path, exist_ok=True)
+                        name = os.path.join(
+                            save_path,
+                            f"category{cat}_table{tab}_mcs{mcs}.png")
+                        fig.savefig(name)
+                        fignames.append(name)
+                    if show:
+                        plt.show()
+                    plt.close(fig)
+        return fignames
+
     def new_bler_table(self, snr_dbs, cb_sizes, sim_set, channel=None,
                        filename=None, write_mode="w", batch_size=1000,
                        max_mc_iter=100, target_bler=None,

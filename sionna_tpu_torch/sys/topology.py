@@ -349,6 +349,43 @@ class HexGrid(Object):
         return ut_loc, mirror_cell_per_ut_loc, wraparound_dist
 
 
+    def show(self, show_mirrors=False, show_coord=False,
+             show_coord_type="euclid", show_sectors=False,
+             coord_fontsize=8, fig=None, color="b", label="base"):
+        """Draws the grid's cells, and with ``show_mirrors`` the six
+        wraparound copies (matplotlib, imported here); returns the
+        figure."""
+        import matplotlib.pyplot as plt
+        if fig is None:
+            fig, ax = plt.subplots()
+        else:
+            ax = fig.gca()
+        if show_mirrors:
+            for rr in range(6):
+                mirror = HexGrid(
+                    cell_radius=self._cell_radius,
+                    num_rings=self._num_rings,
+                    center_loc=np.asarray(self._center_loc)[:2]
+                    + self._mirror_displacements_offset[rr + 1][:2],
+                    center_loc_type="offset",
+                    precision=self.precision)
+                fig = mirror.show(color="r", fig=fig,
+                                  show_coord=show_coord,
+                                  show_coord_type=show_coord_type,
+                                  label="mirror" if rr == 0 else None)
+        for cell_idx, cell in self._grid.items():
+            corners = cell.corners()
+            ax.plot(np.append(corners[:, 0], corners[0, 0]),
+                    np.append(corners[:, 1], corners[0, 1]),
+                    color=color)
+            ax.plot(*cell.coord_euclid, marker=".", color=color,
+                    label=(label + " cell")
+                    if label is not None and cell_idx == 0 else None)
+        ax.set_aspect("equal", adjustable="box")
+        if label is not None:
+            ax.legend()
+        return fig
+
 def gen_hexgrid_topology(batch_size, num_rings, num_ut_per_sector,
                          scenario, min_bs_ut_dist=None,
                          max_bs_ut_dist=None, isd=None, bs_height=None,

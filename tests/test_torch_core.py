@@ -309,20 +309,31 @@ def test_port_never_imports_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_port_imports_matplotlib_only_where_it_plots():
+    """Importing every module of the port leaves matplotlib out: each
+    plot or show() imports it when it is called (the card's machine has
+    none)."""
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "import sionna_tpu_torch\n"
+        "for m in pkgutil.walk_packages(sionna_tpu_torch.__path__,\n"
+        "                               'sionna_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('matplotlib', 'pylab'))\n"
+        "print(len(sys.modules), bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 # Public names of the JAX package that the port leaves out, each by the
 # ROADMAP.md entry that says so. Subpackages that only hold data files
 # (the LDPC and polar code tables, the turbo coefficients) are read by
 # path and have no port counterpart.
 PORT_EXCLUDES = {
-    "sionna_tpu.rt": {
-        # item 21 (c): the renderer and the Mitsuba loader (its three
-        # functions and the module that holds them)
-        "render", "load_ply", "load_mitsuba_xml", "export_mitsuba_xml",
-        "mitsuba_loader",
-    },
     "sionna_tpu.phy.utils": {
-        "PlotBER", "plot_ber", "plotting",  # item 22: plotting
-        "init_multihost",  # item 22: multi-GPU sim_ber
         "put_complex",  # "Leave out": a TPU transfer workaround
     },
 }
@@ -369,6 +380,39 @@ def test_port_has_every_public_name_of_the_jax_package():
     for const in ("SPEED_OF_LIGHT", "BOLTZMANN_CONSTANT", "PI", "H",
                   "ALPHA_MAX"):
         assert getattr(tphy, const) == getattr(jphy, const)
+
+
+PLOT_METHODS = ("show", "plot", "render", "preview", "show_topology")
+
+
+def test_port_has_every_plot_and_show_method_of_the_jax_package():
+    """Every class of the JAX package (its modules walked) with a
+    ``show``, ``plot``, ``render``, ``preview`` or ``show_topology``
+    method has it in its port counterpart, as a method."""
+    import inspect
+    import sionna_tpu
+    found, missing = set(), []
+    for m in pkgutil.walk_packages(sionna_tpu.__path__, "sionna_tpu."):
+        jmod = importlib.import_module(m.name)
+        for cname, cls in vars(jmod).items():
+            if not inspect.isclass(cls) or cls.__module__ != m.name:
+                continue
+            for meth in PLOT_METHODS:
+                if not callable(getattr(cls, meth, None)):
+                    continue
+                tmod = importlib.import_module(
+                    m.name.replace("sionna_tpu", "sionna_tpu_torch", 1))
+                tcls = getattr(tmod, cname, None)
+                found.add(f"{cname}.{meth}")
+                if not callable(getattr(tcls, meth, None)):
+                    missing.append(f"{m.name}.{cname}.{meth}")
+    assert not missing, missing
+    # the ones the JAX package has today, PUSCHPilotPattern by inheritance
+    assert {"Constellation.show", "ResourceGrid.show", "PilotPattern.show",
+            "PUSCHPilotPattern.show", "Filter.show", "Window.show",
+            "PanelArray.show", "SystemLevelChannel.show_topology",
+            "PHYAbstraction.plot", "HexGrid.show", "RadioMap.show",
+            "Scene.render", "Scene.preview"} <= found
 
 
 def test_weighted_bp_callback_is_an_object():

@@ -188,8 +188,16 @@ def test_sim_ber_stopping_rules(capsys):
                           [1.0], batch_size=4, max_mc_iter=2,
                           soft_estimates=True, verbose=False)
     assert float(ber_soft[0]) == 0.0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sim_ber(mc_fun, [0.0], 8, 1, distribute="all")
+    # distribute="all" without a torch.distributed group and with one
+    # visible device is this process alone, as None (and as JAX's "all"
+    # on one device); a JAX-style device list has no counterpart
+    ones = lambda bs, e: (torch.zeros(bs, 8), torch.ones(bs, 8))
+    for distribute in (None, "all"):
+        ber_all, _ = sim_ber(ones, [0.0], 8, 2, distribute=distribute,
+                             verbose=False)
+        assert float(ber_all[0]) == 1.0
+    with pytest.raises(ValueError, match="torchrun"):
+        sim_ber(mc_fun, [0.0], 8, 1, distribute=["cpu"])
 
 
 def _zeros_mc_fun(batch_size, ebno_db):

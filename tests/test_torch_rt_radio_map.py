@@ -151,8 +151,14 @@ def test_radio_map_matches_jax():
                                                **kw_s)
         np.testing.assert_array_equal(cells, cells_j)
         np.testing.assert_array_equal(pos, pos_j)
-    with pytest.raises(NotImplementedError, match="item 22"):
-        got.show()
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    fig = got.show(metric="rss", tx=0)
+    np.testing.assert_allclose(
+        fig.axes[0].images[0].get_array(),
+        10 * np.log10(np.maximum(got.rss[0].numpy(), 1e-30)))
+    plt.close(fig)
     # the solver left the scene as it was
     assert list(st.receivers) == ["rx0"]
 

@@ -21,6 +21,7 @@ import sionna_tpu.rt.scattering_pattern as jsp
 import sionna_tpu_torch.rt as trt
 import sionna_tpu_torch.rt.geometry as tgeo
 import sionna_tpu_torch.rt.scattering_pattern as tsp
+from sionna_tpu_torch.phy.config import config as torch_config
 
 torch.set_num_threads(2)
 
@@ -76,14 +77,24 @@ def test_obj_loading_and_scene_api(tmp_path):
     assert got.bandwidth == 20e6
     with pytest.raises(KeyError):
         got.get("nothing")
-    with pytest.raises(NotImplementedError, match="item 21 \\(c\\)"):
-        got.render()
-    with pytest.raises(NotImplementedError, match="item 21 \\(c\\)"):
-        got.preview()
+    # render/preview need a camera: the scene's last one went above.
+    # They trace on ``config.device`` (the card by default): ask for the CPU
+    device = torch_config.device
+    torch_config.device = "cpu"
+    try:
+        with pytest.raises(ValueError, match="no camera"):
+            got.render()
+        got.add(trt.Camera("cam", [5., 5., 5.]))
+        img = got.render(resolution=(8, 6))
+        assert img.shape == (6, 8, 3) and img.dtype == np.float32
+        np.testing.assert_array_equal(got.preview(resolution=(8, 6)), img)
+    finally:
+        torch_config.device = device
+    # a Mitsuba XML file loads (an empty one to an empty scene)
     xml = tmp_path / "scene.xml"
     xml.write_text("<scene/>")
-    with pytest.raises(NotImplementedError, match="item 21 \\(c\\)"):
-        trt.load_scene(str(xml))
+    empty = trt.load_scene(str(xml))
+    assert empty.num_triangles == 0 and empty.name == "scene"
 
 
 def test_radio_materials_match_jax():
