@@ -284,6 +284,31 @@ render traces its rays through phase 30's intersection code.
     link tightly), one launch of K1's min-sum variant per call of
     ``LDPC5GDecoder`` (counted on its ``forward``) in 02 and 03 and no
     kernel launch in the others.
+36. the gradient kernels of the lifted decoder (a fresh process,
+    ``grad_phases``): K5f and K5b (``csrc/ldpc_lifted_bp_grad.cu``), K5Lf
+    and K5Lb (``csrc/ldpc_layered_bp_grad.cu``), built in phase 2 beside
+    K1 and K3. For the four codes of phases 3-4 and the three check-node
+    rules: K5f's marginals identical to K1's (K5Lf's to K3's) at 0, 1, 5
+    and 20 iterations (10 layered); at 0, 1 and 5 its tapes identical to
+    the plain tape forward's (``lifted_grad.flooding_tape_forward``,
+    ``layered_tape_forward``) and K5b (K5Lb) on that tape against the
+    plain reverse on the card, the largest error over the largest
+    |gradient| within ``GRAD_REL_TOL``. Then at the link's n=2048 x 2000
+    and the flagship's n=12288 x 2048 (BP-20, layered-10, boxplus): the
+    same three checks on the calls that it times, ms per call (CUDA
+    events, warm-up excluded) of the tape kernel, the backward kernel and
+    K1/K3 alone, of the plain tape forward and reverse, each kernel's
+    bound, the peak memory of a forward and backward;
+37. trains a 16-QAM constellation through the quick-start link at full
+    width (``TRAIN``: ``LDPC5GEncoder(1024, 2048)``, ``Mapper`` with
+    ``points=``, ``AWGN``, ``Demapper("app", points=)``,
+    ``LDPC5GDecoder(hard_out=False, cn_update="boxplus")``, BCE of the
+    info bits against the soft output, ``torch.optim.Adam`` on the
+    points): 10 steps at BP-20 on the default engine, then 10 with
+    ``cn_schedule="layered", engine="lifted"`` at 10 iterations; the loss
+    per step, one launch of the tape and of the backward kernel per step
+    and none of K1/K3, finite gradients, and the loss on a fixed
+    evaluation batch lower after the steps than before.
 
 Phases 15 and 16 run in a process of their own; each link is held to
 its BLER band from a JAX run of the same link
@@ -339,6 +364,9 @@ from sionna_tpu_torch.phy.fec.ldpc.decoding import (LAYERED_BP_KERNEL,
                                                     LIFTED_BP_KERNEL,
                                                     layered_bp_cuda,
                                                     lifted_bp_cuda)
+from sionna_tpu_torch.phy.fec.ldpc import lifted_grad
+from sionna_tpu_torch.phy.fec.ldpc.lifted_grad import (
+    LAYERED_BP_GRAD_KERNEL, LIFTED_BP_GRAD_KERNEL)
 from sionna_tpu_torch.phy.fec.conv import (BCJRDecoder, ConvEncoder,
                                            ViterbiDecoder)
 from sionna_tpu_torch.phy.fec.linear import LinearEncoder
@@ -378,7 +406,29 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
 PEAK_F32_ISSUE_S = PEAK_F32_OPS_S / 2
 KERNELS = (LIFTED_BP_KERNEL, LAYERED_BP_KERNEL)
+# the gradient kernels (phases 36-37), built in phase 2 with KERNELS
+GRAD_KERNELS = (LIFTED_BP_GRAD_KERNEL, LAYERED_BP_GRAD_KERNEL)
 _DEC = "sionna_tpu/phy/fec/ldpc/decoding.py"
+# Each gradient kernel: (name in the kernels line, label, kernel, variant
+# as the wrapper counts it, the TPU code it replaces)
+GRAD_VARIANTS = [
+    ("ldpc_lifted_bp_grad_tape", "K5f", LIFTED_BP_GRAD_KERNEL, "forward",
+     LIFTED_BP_GRAD_KERNEL.replaces),
+    ("ldpc_lifted_bp_grad_backward", "K5b", LIFTED_BP_GRAD_KERNEL,
+     "backward", LIFTED_BP_GRAD_KERNEL.replaces),
+    ("ldpc_layered_bp_grad_tape", "K5Lf", LAYERED_BP_GRAD_KERNEL, "forward",
+     LAYERED_BP_GRAD_KERNEL.replaces),
+    ("ldpc_layered_bp_grad_backward", "K5Lb", LAYERED_BP_GRAD_KERNEL,
+     "backward", LAYERED_BP_GRAD_KERNEL.replaces),
+]
+# phase 36: a backward kernel against the plain reverse on the same tape,
+# the largest |error| over the largest |gradient| (two f32 sums of the
+# same terms in other orders)
+GRAD_REL_TOL = 1e-5
+# phase 37: the training step (the quick-start link with a trainable
+# constellation and the decoder in the loss)
+TRAIN = dict(k=1024, n=2048, nbps=4, batch=2000, ebno_db=3.0, steps=10,
+             lr=1e-2)
 # Every kernel variant: (name in the kernels line, the tuning sweep's
 # label, kernel, variant as the wrapper counts it, TPU code it
 # replaces); its knobs are those of its label in ldpc_tune.KERNEL_VARIANTS.
@@ -4819,6 +4869,329 @@ def examples_phase(card):
                                  f"{want}")
 
 
+def grad_ptxas_report(kern):
+    """One line per kernel of a gradient kernel's library: ptxas's
+    registers, stack, spill and shared-memory figures."""
+    lines, entry = [], None
+    for line in kern.build_log.splitlines():
+        m = re.search(r"Compiling entry function '.*?\d+((?:flooding|layered)"
+                      r"_(?:tape|reverse)_kernel)E", line)
+        if m:
+            entry = m.group(1)
+        elif entry and ("registers" in line or "spill" in line
+                        or "smem" in line):
+            lines.append(f"{kern.name}<{entry}>: "
+                         f"{line.split(':', 1)[-1].strip()}")
+    return lines
+
+
+def grad_bound(lift, batch, num_iter, ops, layered):
+    """(bound ms, "bytes" or "operations") of one call of a gradient
+    kernel: the bytes it must move at 3.35 TB/s (the LLRs or dL/dmarg
+    read and the marginals or dL/dllr written, the tape written by the
+    tape kernel and read by the backward kernel, once each) against its
+    FP32 operations at 67 TFLOP/s: the edge-lane updates of the call
+    times ``ops`` per update (K1's count for a tape kernel,
+    ``sass_ops.backward_ops_per_update`` for a backward kernel)."""
+    z, n_e, n_c = lift._z, len(lift._edges), lift._n_col_blocks
+    tape = num_iter * (n_e + (n_c if layered else 0)) * batch * z * 4
+    n_bytes = 2 * batch * n_c * z * 4 + tape
+    updates = batch * num_iter * n_e * z
+    t_bytes = n_bytes / PEAK_BYTES_S
+    t_ops = updates * ops / PEAK_F32_OPS_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def grad_calls(lift, layered):
+    """The (tape, backward) kernel wrappers and their plain versions for
+    ``lift``, each pair taking what the other of the pair returns."""
+    if layered:
+        return (lifted_grad.layered_tape_cuda,
+                lifted_grad.layered_reverse_cuda,
+                lifted_grad.layered_tape_forward, lifted_grad.layered_reverse)
+    return (lifted_grad.flooding_tape_cuda,
+            lifted_grad.flooding_reverse_cuda,
+            lifted_grad.flooding_tape_forward, lifted_grad.flooding_reverse)
+
+
+def check_grad(got, want, what):
+    """Raises unless the backward kernel's ``got`` is finite and within
+    GRAD_REL_TOL of the largest |gradient| of the plain reverse's
+    ``want``. Returns (max |got - want|, that over max |want|)."""
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: gradient not finite")
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not err <= GRAD_REL_TOL * scale:
+        raise AssertionError(f"{what}: backward kernel off the plain "
+                             f"reverse by {err} of {scale}")
+    return err, err / scale if scale else 0.0
+
+
+def check_grad_kernels(dev, layered):
+    """Phase 36, first part: for the four codes of phases 3-4 and three
+    check-node rules, the tape kernel's marginals identical to K1's (K3's)
+    at 0, 1, 5 and 20 (10) iterations; at 0, 1 and 5 its tapes identical
+    to the plain tape forward's and the backward kernel on that tape
+    against the plain reverse, within GRAD_REL_TOL of the largest
+    |gradient| (the plain reverse at 20 iterations is phase 36's second
+    part, at the main path's shapes). Returns {kernels-line name: max
+    |kernel - plain|}."""
+    gen = torch.Generator(device=dev).manual_seed(36)
+    names = [v[0] for v in GRAD_VARIANTS if (v[2] is LAYERED_BP_GRAD_KERNEL)
+             == layered]
+    max_err = dict.fromkeys(names, 0.0)
+    iters, deep = (0, 1, 5), 10 if layered else 20
+    codes = [(100, 200, None, 256), (LINK["k"], LINK["n"], LINK["nbps"], 500),
+             (6144, 12288, None, 128), (8448, 16896, None, 32)]
+    worst = 0.0
+    for k, n, nbps, batch in codes:
+        enc = LDPC5GEncoder(k, n, num_bits_per_symbol=nbps, device=dev)
+        for cn in ("boxplus", "minsum", "offset-minsum"):
+            dec = LDPC5GDecoder(enc, cn_update=cn, engine="lifted",
+                                device=dev)
+            lift = dec.lifted
+            tape_k, back_k, tape_p, back_p = grad_calls(lift, layered)
+            llr = dec.recover_llrs(noisy_llrs(enc, batch, 2.0, gen)[1])
+            rel = []
+            for it in iters + (deep,):
+                marg, *tapes = tape_k(lift, llr, it)
+                with torch.no_grad():
+                    ref = lift(llr, it, layered=layered)
+                what = f"{'K5Lf' if layered else 'K5f'} ({k},{n}) {cn} {it}"
+                max_err[names[0]] = max(max_err[names[0]], assert_identical(
+                    marg, ref, f"{what} iters against K{3 if layered else 1}"))
+                if it == deep:
+                    continue
+                _, *plain_tapes = tape_p(lift, llr, it)
+                for t, pt in zip(tapes, plain_tapes):
+                    if it:
+                        assert_identical(t, pt, f"{what} iters: tape")
+                g = torch.randn(marg.shape, generator=gen, device=dev)
+                err, r = check_grad(back_k(lift, llr, *tapes, g),
+                                    back_p(lift, llr, *tapes, g),
+                                    f"{what} iters")
+                max_err[names[1]] = max(max_err[names[1]], err)
+                rel.append(r)
+            worst = max(worst, *rel)
+            print(f"  ({k},{n}) x {batch} {cn:13s}: marginals identical "
+                  f"at iters {iters + (deep,)}, tapes at {iters}; backward "
+                  f"|err| / max|grad| {', '.join(f'{r:.2e}' for r in rel)}")
+    print(f"    largest |err| / max|grad| {worst:.3e} (tolerance "
+          f"{GRAD_REL_TOL:g})")
+    return max_err
+
+
+def kept(out, key, fn):
+    """A call of ``fn`` that leaves its output at ``out[key]``, the last
+    call's output freed before it starts (as a call whose output is
+    dropped leaves the allocator its memory)."""
+    def call():
+        out.pop(key, None)
+        out[key] = fn()
+    return call
+
+
+def time_grad_kernels(dev, card, function_ops, max_err):
+    """Phase 36, second part: at the link's n=2048 x 2000 and the
+    flagship's n=12288 x 2048 (BP-20 flooding, layered-10; boxplus), the
+    outputs of the calls that it times held to each other (the tape
+    kernel's marginals identical to K1's/K3's and its tapes to the plain
+    tape forward's, the backward kernel within GRAD_REL_TOL of the plain
+    reverse; their errors folded into ``max_err``), ms per call of the
+    tape kernel, the backward kernel, K1/K3 alone and the plain pair (CUDA
+    events, warm-up excluded; kernel, plain, kernel), the bounds
+    (``sass_ops`` counts of ``function_ops``) and the peak memory of a
+    forward and backward. Returns {kernels-line name: (ms, plain ms,
+    (bound ms, bound_by), shape)} at the link (the main path of phase
+    37)."""
+    fwd_ops = sass_ops.ops_per_update(function_ops)["log1p"][1]
+    gen = torch.Generator(device=dev).manual_seed(37)
+    out = {}
+    for k, n, nbps, batch, ebno in ((LINK["k"], LINK["n"], LINK["nbps"],
+                                     LINK["batch"], 3.0),
+                                    (6144, 12288, None, 2048, 2.5)):
+        enc = LDPC5GEncoder(k, n, num_bits_per_symbol=nbps, device=dev)
+        dec = LDPC5GDecoder(enc, cn_update="boxplus", engine="lifted",
+                            device=dev)
+        lift = dec.lifted
+        llr = dec.recover_llrs(noisy_llrs(enc, batch, ebno, gen)[1])
+        g = torch.randn(llr.shape, generator=gen, device=dev)
+        for layered, it in ((False, 20), (True, 10)):
+            shape = (f"n={n} x {batch}, "
+                     f"{'layered-10' if layered else 'BP-20'} boxplus")
+            tape_k, back_k, tape_p, back_p = grad_calls(lift, layered)
+            base = layered_bp_cuda if layered else lifted_bp_cuda
+            f_name, b_name = [v[0] for v in GRAD_VARIANTS
+                              if (v[2] is LAYERED_BP_GRAD_KERNEL) == layered]
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            marg, *tapes = tape_k(lift, llr, it)
+            got = back_k(lift, llr, *tapes, g)
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+            # a timed call that is compared keeps its output in `res`
+            res = {}
+            with torch.no_grad():
+                k_ms = cuda_ms(kept(res, "base", lambda: base(lift, llr, it)),
+                               10)
+            max_err[f_name] = max(max_err[f_name], assert_identical(
+                marg, res.pop("base"), f"{f_name} at {shape} against "
+                f"K{3 if layered else 1}"))
+            # kernel, plain, kernel: the plain pair once after a warm-up
+            # call (seconds each at the flagship; without the warm-up its
+            # first call measured up to 8x the second)
+            f1 = cuda_ms(lambda: tape_k(lift, llr, it), 5)
+            pf = cuda_ms(kept(res, "plain", lambda: tape_p(lift, llr, it)), 1)
+            for t, pt in zip(tapes, res.pop("plain")[1:]):
+                torch.cuda.synchronize()
+                if not torch.equal(t, pt):  # no |t - pt| temporary
+                    raise AssertionError(f"{f_name} at {shape}: tape off "
+                                         f"the plain tape forward's")
+            f2 = cuda_ms(lambda: tape_k(lift, llr, it), 5)
+            b1 = cuda_ms(lambda: back_k(lift, llr, *tapes, g), 5)
+            pb = cuda_ms(kept(res, "plain",
+                              lambda: back_p(lift, llr, *tapes, g)), 1)
+            err, rel = check_grad(got, res.pop("plain"),
+                                  f"{b_name} at {shape}")
+            max_err[b_name] = max(max_err[b_name], err)
+            b2 = cuda_ms(lambda: back_k(lift, llr, *tapes, g), 5)
+            fb = grad_bound(lift, batch, it, fwd_ops, layered)
+            bb = grad_bound(lift, batch, it, sass_ops.backward_ops_per_update(
+                function_ops, layered), layered)
+            tape_gb = sum(t.numel() for t in tapes) * 4 / 1e9
+            print(f"    {shape}: marginals and tapes identical, backward "
+                  f"|err| / max|grad| {rel:.2e}; "
+                  f"K{3 if layered else 1} alone {k_ms:.3f} ms; "
+                  f"tape kernel {f1:.3f} / {f2:.3f} ms (bound {fb[0]:.3f} "
+                  f"ms, {fb[1]}, {100 * fb[0] / min(f1, f2):.1f} %), "
+                  f"backward kernel {b1:.3f} / {b2:.3f} ms (bound "
+                  f"{bb[0]:.3f} ms, {bb[1]}, "
+                  f"{100 * bb[0] / min(b1, b2):.1f} %); forward and "
+                  f"backward {min(f1, f2) + min(b1, b2):.3f} ms = "
+                  f"{(min(f1, f2) + min(b1, b2)) / k_ms:.2f} x K"
+                  f"{3 if layered else 1}; plain tape forward {pf:.1f} ms, "
+                  f"plain reverse {pb:.1f} ms; tape {tape_gb:.3f} GB, peak "
+                  f"{peak:.2f} GiB above the inputs, on {card}")
+            del marg, tapes, got
+            if n == LINK["n"]:
+                out[f_name] = ((f1 + f2) / 2, pf, fb, shape)
+                out[b_name] = ((b1 + b2) / 2, pb, bb, shape)
+    return out
+
+
+def train_constellation(dev, layered, gen):
+    """Phase 37: TRAIN["steps"] Adam steps on 16-QAM points through the
+    quick-start link, the decoder in the loss. Returns (losses per step,
+    the tape and backward kernels' launches and K1/K3's in the steps,
+    evaluation loss before, after, ms per step by the host clock)."""
+    k, n, nbps, batch = TRAIN["k"], TRAIN["n"], TRAIN["nbps"], TRAIN["batch"]
+    src = BinarySource(device=dev)
+    enc = LDPC5GEncoder(k, n, num_bits_per_symbol=nbps, device=dev)
+    knobs = (dict(cn_schedule="layered", engine="lifted", num_iter=10)
+             if layered else dict(num_iter=20))
+    dec = LDPC5GDecoder(enc, cn_update="boxplus", hard_out=False,
+                        device=dev, **knobs)
+    mapper = Mapper("qam", nbps, device=dev)
+    demapper = Demapper("app", "qam", nbps, device=dev)
+    awgn = AWGN(device=dev)
+    no = ebnodb2no(TRAIN["ebno_db"], nbps, k / n).to(dev)
+    points = torch.nn.Parameter(mapper.constellation.points.detach().clone())
+    opt = torch.optim.Adam([points], lr=TRAIN["lr"])
+
+    def loss_fn(g):
+        u = src([batch, k], generator=g)
+        pts = points / torch.sqrt(torch.mean(torch.abs(points) ** 2))
+        y = awgn(mapper(enc(u), points=pts), no, generator=g)
+        out = dec(demapper(y, no, points=pts))
+        return torch.nn.functional.binary_cross_entropy_with_logits(out, u)
+
+    def eval_loss():
+        with torch.no_grad():
+            return float(loss_fn(torch.Generator(device=dev).manual_seed(99)))
+
+    before = eval_loss()
+    for kern in KERNELS + GRAD_KERNELS:
+        kern.reset()
+    losses, step_ms = [], []
+    for _ in range(TRAIN["steps"]):
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = loss_fn(gen)
+        loss.backward()
+        if not bool(torch.isfinite(points.grad).all()):
+            raise AssertionError(f"[37] gradient not finite: {points.grad}")
+        opt.step()
+        losses.append(loss.item())  # a host sync: the step's end
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    grad_kern = LAYERED_BP_GRAD_KERNEL if layered else LIFTED_BP_GRAD_KERNEL
+    launches = (dict(grad_kern.variant_launches),
+                sum(kern.launches for kern in KERNELS))
+    return losses, launches, before, eval_loss(), step_ms
+
+
+def grad_phases(card, results, function_ops):
+    """Phases 36-37, run in a fresh process by ``main``; puts the
+    gradient kernels' kernels-line entries on ``results``."""
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    print(f"[36] gradient kernels K5f/K5b and K5Lf/K5Lb against K1/K3 and "
+          f"the plain reverse on {card}")
+    max_err = check_grad_kernels(dev, False)
+    max_err.update(check_grad_kernels(dev, True))
+    times = time_grad_kernels(dev, card, function_ops, max_err)
+    print(f"    phase 36: {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    print(f"[37] training a 16-QAM constellation through the quick-start "
+          f"link (batch {TRAIN['batch']}, {TRAIN['ebno_db']} dB, Adam lr "
+          f"{TRAIN['lr']}) on {card}")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    launches = {}
+    for layered in (False, True):
+        t2 = time.perf_counter()
+        losses, (grad_l, base_l), before, after, step_ms = \
+            train_constellation(dev, layered, gen)
+        torch.cuda.synchronize()
+        what = ("layered-10, engine=\"lifted\"" if layered
+                else "BP-20, engine=\"auto\"")
+        print(f"    {what}: loss per step "
+              f"{', '.join(f'{x:.5f}' for x in losses)}; evaluation loss "
+              f"{before:.5f} -> {after:.5f}; launches {grad_l} (K1/K3 "
+              f"{base_l}) in {TRAIN['steps']} steps; ms per step (host "
+              f"clock) first {step_ms[0]:.1f}, median of the others "
+              f"{float(np.median(step_ms[1:])):.3f}; "
+              f"{time.perf_counter() - t2:.1f} s with the evaluation")
+        if grad_l != {"forward": TRAIN["steps"],
+                      "backward": TRAIN["steps"]} or base_l:
+            raise AssertionError(f"[37] {what}: launches {grad_l}, K1/K3 "
+                                 f"{base_l} in {TRAIN['steps']} steps")
+        if not after < before:
+            raise AssertionError(f"[37] {what}: the evaluation loss did not "
+                                 f"fall: {before} -> {after}")
+        fwd, bwd = [v[0] for v in GRAD_VARIANTS
+                    if (v[2] is LAYERED_BP_GRAD_KERNEL) == layered]
+        launches[fwd] = grad_l["forward"]
+        launches[bwd] = grad_l["backward"]
+    print(f"    phase 37: {time.perf_counter() - t1:.1f} s")
+    results.put([{
+        "name": name,
+        "route": "cuda",
+        "source": "sionna_tpu_torch/csrc/" + kern.source.name,
+        "replaces": replaces,
+        "launches": launches[name],
+        "max_abs_err": max_err[name],
+        "shape": times[name][3],
+        "ms": times[name][0],
+        "plain_ms": times[name][1],
+        "bound_ms": times[name][2][0],
+        "bound_by": times[name][2][1],
+        "library_ms": None,
+    } for name, _, kern, _, replaces in GRAD_VARIANTS])
+
+
 def run_in_process(target, card, timeout, *args):
     """Runs ``target(card, results, *args)`` in a fresh spawned process and
     returns what it put on the queue ``results`` (None if nothing);
@@ -4868,13 +5241,17 @@ def main():
         raise AssertionError(f"blocks without a device on {default_dev}")
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+    with ThreadPoolExecutor(len(KERNELS + GRAD_KERNELS) + 1) as pool:
         ops_job = pool.submit(sass_ops.function_ops)
-        list(pool.map(lambda kern: kern.library(), KERNELS))
+        list(pool.map(lambda kern: kern.library(), KERNELS + GRAD_KERNELS))
         function_ops = ops_job.result()
     ops_per_update = sass_ops.ops_per_update(function_ops)
-    print(f"[2] built {', '.join(k.source.name for k in KERNELS)} and the "
-          f"SASS probes in {time.perf_counter() - t0:.2f} s")
+    print(f"[2] built "
+          f"{', '.join(k.source.name for k in KERNELS + GRAD_KERNELS)} and "
+          f"the SASS probes in {time.perf_counter() - t0:.2f} s")
+    for kern in GRAD_KERNELS:
+        for line in grad_ptxas_report(kern):
+            print(f"    ptxas {line}")
     for kern in KERNELS:
         for line in ptxas_report(kern):
             print(f"    ptxas {line}")
@@ -5113,6 +5490,10 @@ def main():
     print(f"[14] flagship receiver variants through sim_ber at 8 dB, BP-20 "
           f"(K1), on {card}")
     run_receivers(dev)
+    # nothing decoded under grad through the lifted engine so far
+    if any(kern.launches for kern in GRAD_KERNELS):
+        raise AssertionError(f"phases 1-14 launched a gradient kernel: "
+                             f"{[k.variant_launches for k in GRAD_KERNELS]}")
 
     # phases 15-16 time eager, launch-bound decoders in a process of
     # their own: after a torch.profiler window (phases 8 and 14) every
@@ -5157,8 +5538,11 @@ def main():
     print(f"[35] the port's examples (sionna_tpu_torch/examples) at full "
           f"size on {card}")
     examples_phase(card)
-    print(f"    phase 35 took {time.perf_counter() - t0:.1f} s; the script "
-          f"{time.perf_counter() - t_start:.1f} s")
+    print(f"    phase 35 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    grad_entries = run_in_process(grad_phases, card, 300, function_ops)
+    print(f"    phases 36-37 took {time.perf_counter() - t0:.1f} s; the "
+          f"script {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": name,
@@ -5173,7 +5557,7 @@ def main():
         "bound_ms": bounds[name][0],
         "bound_by": bounds[name][1],
         "library_ms": None,
-    } for name, _, kern, _, replaces in VARIANTS]}))
+    } for name, _, kern, _, replaces in VARIANTS] + grad_entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -65,6 +65,36 @@ __device__ __forceinline__ void store_msg(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
+// The two ends of a check-node unit as K1 (ldpc_lifted_bp.cu) and the
+// gradient kernels (ldpc_cn_grad.cuh) compute it. cn_edge_in takes edge
+// k's v2c message m (`on` on an active lane): val[k] becomes
+// the check node's input, tanh(|m|/2) (mode 0, boxplus) or |m| (min-sum),
+// or on an inactive lane the neutral 1 or 1e30; bit k of neg marks a
+// negative m and sign_tot takes the product of the signs. cn_edge_out
+// gives edge k's c2v message from its extrinsic magnitude mag: signed by
+// the other edges' signs, clipped at clip, 0 on an inactive lane.
+template <int D>
+__device__ __forceinline__ void cn_edge_in(int k, float m, bool on, int mode,
+                                           float (&val)[D], unsigned& neg,
+                                           float& sign_tot) {
+  float v = mode == 0 ? tanhf(fabsf(m) / 2.f) : fabsf(m);
+  float s = signf(m);
+  if (!on) {
+    v = mode == 0 ? 1.f : 1e30f;
+    s = 1.f;
+  }
+  val[k] = v;
+  if (s < 0.f) neg |= 1u << k;
+  sign_tot = k == 0 ? s : sign_tot * s;
+}
+
+__device__ __forceinline__ float cn_edge_out(int k, float mag, unsigned neg,
+                                             unsigned act, float sign_tot,
+                                             float clip) {
+  const float sgn = (neg >> k) & 1u ? -1.f : 1.f;
+  return sign_tot * sgn * fminf(mag, clip) * ((act >> k) & 1u ? 1.f : 0.f);
+}
+
 // The boxplus magnitude of the clamped extrinsic product x.
 template <int kForm>
 __device__ __forceinline__ float boxplus_mag(float x) {

@@ -82,7 +82,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 using sionna_ldpc::clampf;
-using sionna_ldpc::signf;
 
 // The layout limits come from sionna_tpu_torch/phy/fec/ldpc/decoding.py
 // (K1_MAX_THREADS, ...), their one source, as defines on nvcc's command
@@ -162,24 +161,15 @@ __device__ __forceinline__ float cn_unit(float* state,
     } else {
       m = *slot_ptr<kMulti>(state, slot[k], z, l);
     }
-    float v = mode == 0 ? tanhf(fabsf(m) / 2.f) : fabsf(m);
-    float s = signf(m);
-    if (lane_active(range[k], z, l)) {
-      act |= 1u << k;
-    } else {
-      v = mode == 0 ? 1.f : 1e30f;
-      s = 1.f;
-    }
-    val[k] = v;
-    if (s < 0.f) neg |= 1u << k;
-    sign_tot = k == 0 ? s : sign_tot * s;
+    const bool on = lane_active(range[k], z, l);
+    if (on) act |= 1u << k;
+    sionna_ldpc::cn_edge_in<D>(k, m, on, mode, val, neg, sign_tot);
   }
   float reg_c2v = 0.f;
   sionna_ldpc::cn_extrinsic<D, kForm>(val, mode, offset, [&](int k,
                                                              float mag) {
-    const float sgn = (neg >> k) & 1u ? -1.f : 1.f;
-    const float c2v = sign_tot * sgn * fminf(mag, clip) *
-                      ((act >> k) & 1u ? 1.f : 0.f);
+    const float c2v =
+        sionna_ldpc::cn_edge_out(k, mag, neg, act, sign_tot, clip);
     if (k == reg_pos) {
       reg_c2v = c2v;
     } else {

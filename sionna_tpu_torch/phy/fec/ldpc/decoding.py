@@ -26,7 +26,9 @@ PyTorch counterpart of ``sionna_tpu/phy/fec/ldpc/decoding.py``:
 Which lifted decode runs depends only on where the LLRs lie: a CPU
 tensor goes through the plain decode, a CUDA tensor through the kernel.
 A CUDA tensor never falls back to the plain decode; if the kernel cannot
-build or launch, the call raises.
+build or launch, the call raises. LLRs that require grad go through
+``lifted_grad.LiftedBPFunction`` instead: the gradient kernels K5f/K5b
+and K5Lf/K5Lb on the card, their plain versions on the CPU.
 
 LLRs follow the package logit convention log(P1/P0); the BP engines
 work in the classic log(P0/P1) convention (input and output negated).
@@ -981,6 +983,7 @@ class LDPC5GLiftedBP(nn.Module):
         self._k1_plans = {}  # K1's plan by device (k1_plan)
         self._k3_layouts = {}  # K3's layout by storage dtype (k3_layout)
         self._k3_plans = {}  # K3's plan by device (k3_plan)
+        self._grad_plans = {}  # the K5 kernels' plan by device (lifted_grad)
 
     def k1_layout(self):
         """:func:`lifted_bp_layout` of this code (cached)."""
@@ -1024,8 +1027,19 @@ class LDPC5GLiftedBP(nn.Module):
                 atanh_form="log1p"):
         """llr_int: [batch, num_vns] classic-convention LLRs. Returns
         marginals [batch, num_vns] after ``num_iter`` flooding or
-        (``layered``) layered iterations."""
+        (``layered``) layered iterations.
+
+        When the LLRs require grad (and grad mode is on), the decode runs
+        through :class:`~.lifted_grad.LiftedBPFunction`: the tape kernel
+        K5f (or K5Lf) and the backward kernel K5b (K5Lb) on a CUDA tensor,
+        their plain versions on a CPU tensor. Under grad, bf16 storage and
+        the ratio form raise: JAX differentiates only the XLA engine,
+        which has neither."""
         _check_knobs(storage_dtype, atanh_form)
+        if torch.is_grad_enabled() and llr_int.requires_grad:
+            _check_grad_knobs(storage_dtype, atanh_form)
+            from .lifted_grad import lifted_bp_grad
+            return lifted_bp_grad(self, llr_int, num_iter, layered)
         if llr_int.is_cuda:
             if layered:
                 return layered_bp_cuda(self, llr_int, num_iter,
@@ -1039,12 +1053,15 @@ class LDPC5GLiftedBP(nn.Module):
         return self.decode(llr_int, num_iter, storage_dtype, atanh_form)
 
     def decode(self, llr_int, num_iter, storage_dtype=None,
-               atanh_form="log1p"):
+               atanh_form="log1p", tape=None):
         """Plain torch version of the lifted BP iteration (the flooding
         kernel's oracle). llr_int: [batch, num_vns] classic-convention
         LLRs. Returns marginals [batch, num_vns]. With bf16 storage the
         initial and every new v2c message is rounded to bf16 as the
-        kernel stores it; c2v and the marginals are never rounded."""
+        kernel stores it; c2v and the marginals are never rounded.
+        ``tape`` ([num_iter, E, batch, Z], optional) receives the
+        CN-aligned v2c messages each iteration reads (the gradient's
+        tape, ``lifted_grad.flooding_tape_forward``)."""
         _check_knobs(storage_dtype, atanh_form)
         store = _stored(storage_dtype)
         z = self._z
@@ -1078,14 +1095,17 @@ class LDPC5GLiftedBP(nn.Module):
                                 dims=-1))
                for (r, c, s) in edges]
         marg = llr_vn  # num_iter == 0 -> marginals = input
-        for _ in range(num_iter):
+        for it in range(num_iter):
+            if tape is not None:
+                tape[it] = torch.stack(v2c)
             c2v = _lifted_cn_phase(v2c, masks, self._row_edges, len(edges),
                                    clip, self._offset, self._cn_mode,
                                    self._edge_full, atanh_form)
             v2c, marg = vn_phase(c2v)
         return marg.reshape(batch, -1)[:, :self._num_vns]
 
-    def decode_layered(self, llr_int, num_iter, storage_dtype=None):
+    def decode_layered(self, llr_int, num_iter, storage_dtype=None,
+                       tape_marg=None, tape_c2v=None):
         """Plain torch version of the layered (serial-C) schedule, op for
         op as the JAX package's ``decode_layered`` (the layered kernel's
         oracle): base rows are processed in order, each row's new check
@@ -1095,7 +1115,10 @@ class LDPC5GLiftedBP(nn.Module):
         to bf16 when stored, and both the row's v2c and the posterior's
         increment subtract the rounded old c2v from the unrounded new
         one, as the Pallas kernel does. llr_int: [batch, num_vns].
-        Returns marginals [batch, num_vns]."""
+        Returns marginals [batch, num_vns]. ``tape_marg`` ([num_iter, C_b,
+        batch, Z]) and ``tape_c2v`` ([num_iter, E, batch, Z]), optional,
+        receive each iteration's starting posterior and c2v messages (the
+        gradient's tape, ``lifted_grad.layered_tape_forward``)."""
         _check_knobs(storage_dtype, "log1p")
         store = _stored(storage_dtype)
         z = self._z
@@ -1107,7 +1130,10 @@ class LDPC5GLiftedBP(nn.Module):
         n_e = len(edges)
         marg = [llr_vn[:, c] for c in range(self._n_col_blocks)]
         c2v = [torch.zeros_like(marg[0]) for _ in range(n_e)]
-        for _ in range(num_iter):
+        for it in range(num_iter):
+            if tape_marg is not None:
+                tape_marg[it] = torch.stack(marg)
+                tape_c2v[it] = torch.stack(c2v)
             for r, eids in self._row_edges.items():
                 v2c = [None] * n_e
                 for e in eids:
@@ -1125,20 +1151,35 @@ class LDPC5GLiftedBP(nn.Module):
         return out[:, :self._num_vns]
 
 
+def _check_grad_knobs(storage_dtype, atanh_form):
+    """Raises for the knobs the gradient path does not take: the JAX
+    package differentiates its XLA lifted engine (f32 messages, the log1p
+    form); bf16 storage and the ratio form exist only in its Pallas
+    kernel, which has no VJP."""
+    if storage_dtype is not None or atanh_form != "log1p":
+        raise RuntimeError(
+            "the lifted engine's gradient takes f32 message storage and "
+            "the log1p form only: bf16 storage and atanh_form='ratio' are "
+            "knobs of the JAX package's Pallas kernel, which has no "
+            "gradient; decode under torch.no_grad() or detach the LLRs")
+
+
 def _check_llrs(kern, lifted, llr_int, num_iter, storage_dtype,
                 atanh_form):
     """Raises unless ``llr_int`` is what the lifted BP kernel ``kern``
-    takes: f32 CUDA LLRs [batch, num_vns] without grad, on the device of
-    ``lifted``'s tables, with a nonnegative int ``num_iter`` and the
-    Pallas kernel's knobs."""
+    takes: f32 CUDA LLRs [batch, num_vns], on the device of ``lifted``'s
+    tables, with a nonnegative int ``num_iter`` and the Pallas kernel's
+    knobs, and no grad to keep (the kernel computes none: the gradient
+    path is ``LDPC5GLiftedBP``'s, through K5)."""
     name = f"{kern.name} kernel"
     if not llr_int.is_cuda:
         raise ValueError(f"the {name} needs a CUDA tensor")
     if llr_int.dtype != torch.float32:
         raise TypeError(f"the {name} takes float32, got {llr_int.dtype}")
-    if llr_int.requires_grad:
-        raise RuntimeError(f"the {name} has no backward; decode under "
-                           "torch.no_grad() or detach the LLRs")
+    if torch.is_grad_enabled() and llr_int.requires_grad:
+        raise RuntimeError(f"the {name} computes no gradient; call the "
+                           "LDPC5GLiftedBP module, which runs the K5 kernels "
+                           "for LLRs that require grad")
     if llr_int.dim() != 2 or llr_int.shape[1] != lifted._num_vns:
         raise ValueError(f"expected LLRs [batch, {lifted._num_vns}], got "
                          f"{tuple(llr_int.shape)}")
@@ -1460,7 +1501,7 @@ def lifted_bp_cuda(lifted, llr_int, num_iter, storage_dtype=None,
     ``storage_dtype`` (None or torch.bfloat16) and ``atanh_form``
     ("log1p" or "ratio") are the Pallas kernel's knobs. Returns
     marginals [batch, num_vns]. Raises on anything the kernel does not
-    take; it has no backward."""
+    take; the gradient path is ``LDPC5GLiftedBP``'s (K5f and K5b)."""
     kern = LIFTED_BP_KERNEL
     _check_llrs(kern, lifted, llr_int, num_iter, storage_dtype, atanh_form)
     z = lifted._z
@@ -1497,7 +1538,8 @@ def layered_bp_cuda(lifted, llr_int, num_iter, storage_dtype=None):
     layout of :func:`layered_bp_layout` for ``storage_dtype``: the
     posterior and the c2v state (f32 or bf16) live in shared memory, so
     nothing but the output is allocated here. Raises on anything the
-    kernel does not take; it has no backward."""
+    kernel does not take; the gradient path is ``LDPC5GLiftedBP``'s (K5Lf
+    and K5Lb)."""
     kern = LAYERED_BP_KERNEL
     _check_llrs(kern, lifted, llr_int, num_iter, storage_dtype, "log1p")
     z = lifted._z

@@ -1,0 +1,579 @@
+"""Gradients through the lifted 5G LDPC decoder.
+
+The JAX package differentiates its lifted engine by XLA's autodiff of
+``LDPC5GLiftedBP.decode`` and ``decode_layered`` (``fori_loop``s with
+static trip counts); its Pallas kernel has no VJP. This module gives the
+port's lifted engine the same gradient as a reverse pass written out by
+hand, in two forms that compute the same function:
+
+- the plain torch versions: :func:`flooding_tape_forward` (the flooding
+  decode, op for op as ``LDPC5GLiftedBP.decode``, which also returns the
+  per-iteration v2c tape) and :func:`flooding_reverse` (dL/dmarg ->
+  dL/dllr from the LLRs and the tape); :func:`layered_tape_forward` and
+  :func:`layered_reverse` for the layered schedule, whose tape holds each
+  iteration's starting posterior and c2v;
+- the CUDA kernels that replace them on the card: K5f and K5b
+  (``csrc/ldpc_lifted_bp_grad.cu``), K5Lf and K5Lb
+  (``csrc/ldpc_layered_bp_grad.cu``), behind :func:`flooding_tape_cuda`,
+  :func:`flooding_reverse_cuda`, :func:`layered_tape_cuda` and
+  :func:`layered_reverse_cuda`.
+
+:class:`LiftedBPFunction` is the ``torch.autograd.Function`` that
+``LDPC5GLiftedBP`` calls when the LLRs require grad. On a CUDA tensor its
+forward launches the tape kernel and its backward the backward kernel; on
+a CPU tensor it runs the plain pair, so the CPU tests run the kernels'
+reverse schedule rather than torch's autograd of ``decode``. A CUDA
+tensor never takes the plain pair: a failed build or launch raises.
+
+The reverse pass takes JAX's derivatives where the decode is not smooth,
+so that it gives ``jax.grad``'s values on every input: ``jnp.clip(x, -c,
+c)`` is minimum(c, maximum(-c, x)) and passes 1/2 at |x| = c;
+``jnp.minimum`` and ``jnp.maximum`` split a tie 1/2 to each side (a
+min-sum chain of ties splits as the chain does); ``jnp.abs`` passes +1 at
+0; a ``where`` passes nothing to its unselected side, a sign nothing.
+
+The tapes are float32 on the card: T x E x B x Z x 4 bytes of v2c for T
+iterations of E base edges of Z lanes over B codewords (1.28 GB at the
+n=2048 x 2000 link at BP-20, 9.91 GB at n=12288 x 2048); the layered tape
+holds T x E x B x Z x 4 bytes of c2v and T x C x B x Z x 4 bytes of
+posteriors (C base columns).
+"""
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from ...._build import CudaKernel
+from .decoding import (_CN_DEFINES, _F, _I, _P, _check_llrs,
+                       _check_rows_and_ranges, _csr, _lifted_cn_phase,
+                       _pack_plan)
+
+__all__ = ["LiftedBPFunction", "lifted_bp_grad", "flooding_tape_forward",
+           "flooding_reverse", "layered_tape_forward", "layered_reverse",
+           "flooding_tape_cuda", "flooding_reverse_cuda",
+           "layered_tape_cuda", "layered_reverse_cuda", "grad_plan",
+           "LIFTED_BP_GRAD_KERNEL", "LAYERED_BP_GRAD_KERNEL"]
+
+#: The arrays of the K5 kernels' plan, in order; the plan starts with
+#: their offsets (``decoding._pack_plan``).
+GRAD_PLAN_ARRAYS = ("row_ptr", "edge_col", "edge_shift", "edge_range",
+                    "col_ptr", "col_edge")
+#: Threads per block of K5f and K5b (one codeword per block).
+K5_THREADS = 256
+_GRAD_DEFINES = {"SIONNA_K5_PLAN_ARRAYS": len(GRAD_PLAN_ARRAYS),
+                 "SIONNA_K5_THREADS": K5_THREADS, **_CN_DEFINES}
+_DEC = "sionna_tpu/phy/fec/ldpc/decoding.py"
+
+#: K5f, the flooding decode with its v2c tape, and K5b, its reverse.
+LIFTED_BP_GRAD_KERNEL = CudaKernel(
+    name="ldpc_lifted_bp_grad",
+    source="ldpc_lifted_bp_grad.cu",
+    replaces=f"{_DEC}:1234",
+    functions={
+        "sionna_ldpc_flooding_tape": ([_P] * 5 + [_I] * 7 + [_F, _F, _I]
+                                      + [_P], _I),
+        "sionna_ldpc_flooding_reverse": ([_P] * 7 + [_I] * 7
+                                         + [_F, _F, _I] + [_P], _I),
+        "sionna_cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+    defines=_GRAD_DEFINES)
+
+#: K5Lf, the layered decode with its tape, and K5Lb, its reverse.
+LAYERED_BP_GRAD_KERNEL = CudaKernel(
+    name="ldpc_layered_bp_grad",
+    source="ldpc_layered_bp_grad.cu",
+    replaces=f"{_DEC}:1203",
+    functions={
+        "sionna_ldpc_layered_tape": ([_P] * 5 + [_I] * 7 + [_F, _F, _I]
+                                     + [_P], _I),
+        "sionna_ldpc_layered_reverse": ([_P] * 9 + [_I] * 7
+                                        + [_F, _F, _I] + [_P], _I),
+        "sionna_cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+    defines=_GRAD_DEFINES)
+
+
+# ----------------------------------------------------------------------
+# JAX's derivatives of the non-smooth operations, as factors.
+# ----------------------------------------------------------------------
+
+def _d_clip(x, c):
+    """d jnp.clip(x, -c, c) / dx: 1 inside, 1/2 at |x| = c, 0 outside."""
+    a = torch.abs(x)
+    return torch.where(a < c, 1., torch.where(a == c, 0.5, 0.)).to(x.dtype)
+
+
+def _d_min(x, y):
+    """d jnp.minimum(x, y) / dx (``y`` a tensor or a number)."""
+    return torch.where(x < y, 1., torch.where(x == y, 0.5, 0.)).to(x.dtype)
+
+
+def _d_max0(x):
+    """d jnp.maximum(x, 0) / dx."""
+    return torch.where(x > 0, 1., torch.where(x == 0, 0.5, 0.)).to(x.dtype)
+
+
+def _d_abs(x):
+    """d jnp.abs(x) / dx: +1 at 0, as JAX's rule."""
+    return torch.where(x >= 0, 1., -1.).to(x.dtype)
+
+
+def _add(acc, x):
+    """acc + x, where None stands for zero."""
+    return x if acc is None else acc if x is None else acc + x
+
+
+def _row_adjoint(v2c, g_c2v, masks, eids, full, clip, offset, mode):
+    """The reverse of ``_lifted_cn_phase`` for one base row: the gradient
+    with respect to the row's v2c messages (list over ``eids`` of [B, Z])
+    from the gradient ``g_c2v`` of its c2v messages (same layout; None is
+    zero). Recomputes the row's forward values from ``v2c``."""
+    d = len(eids)
+    ms = [v2c[e] for e in eids]
+    ref = ms[0]
+    one = torch.ones((), dtype=ref.dtype, device=ref.device)
+    gs, acts, signs = [], [], []
+    for e, m, g in zip(eids, ms, (g_c2v[e] for e in eids)):
+        act = None if full[e] else masks[e] > 0
+        g = torch.zeros_like(m) if g is None else g
+        sgn = torch.where(m < 0, -one, one)
+        if act is not None:
+            g = g * masks[e]
+            sgn = torch.where(act, sgn, one)
+        gs.append(g)
+        acts.append(act)
+        signs.append(sgn)
+    sign_tot = signs[0]
+    for sgn in signs[1:]:
+        sign_tot = sign_tot * sgn
+    # gradient of each edge's clamped magnitude before the clip at `clip`
+    g_out = [g * sign_tot * sgn for g, sgn in zip(gs, signs)]
+    g_in = [None] * d  # d/d(check-node input): t (boxplus) or |m|
+    if mode == "boxplus":
+        hi = torch.tensor(1 - 1e-7, dtype=ref.dtype, device=ref.device)
+        ts = []
+        for m, act in zip(ms, acts):
+            t = torch.tanh(torch.abs(m) / 2)
+            ts.append(t if act is None else torch.where(act, t, one))
+        if d == 1:  # the extrinsic is the constant 1 - 1e-7
+            return [torch.zeros_like(ms[0])]
+        fwd = [ts[0]]
+        for t in ts[1:]:
+            fwd.append(fwd[-1] * t)
+        bwd = [ts[-1]]
+        for t in ts[-2::-1]:
+            bwd.append(bwd[-1] * t)
+        bwd = bwd[::-1]
+        g_fwd, g_bwd = [None] * d, [None] * d
+        for i in range(d):
+            prod = (bwd[1] if i == 0 else fwd[d - 2] if i == d - 1
+                    else fwd[i - 1] * bwd[i + 1])
+            ext = torch.minimum(prod, hi)
+            mag = torch.log1p(ext) - torch.log1p(-ext)
+            g_mag = g_out[i] * _d_min(mag, clip)
+            g_prod = (g_mag / (1 + ext) + g_mag / (1 - ext)) \
+                * _d_min(prod, hi)
+            if i == 0:
+                g_bwd[1] = _add(g_bwd[1], g_prod)
+            elif i == d - 1:
+                g_fwd[d - 2] = _add(g_fwd[d - 2], g_prod)
+            else:
+                g_fwd[i - 1] = _add(g_fwd[i - 1], g_prod * bwd[i + 1])
+                g_bwd[i + 1] = _add(g_bwd[i + 1], g_prod * fwd[i - 1])
+        # fwd[i] = fwd[i-1] * t[i] and bwd[i] = bwd[i+1] * t[i], reversed
+        for i in range(d - 1, 0, -1):
+            if g_fwd[i] is not None:
+                g_in[i] = _add(g_in[i], g_fwd[i] * fwd[i - 1])
+                g_fwd[i - 1] = _add(g_fwd[i - 1], g_fwd[i] * ts[i])
+        g_in[0] = _add(g_in[0], g_fwd[0])
+        for i in range(d - 1):
+            if g_bwd[i] is not None:
+                g_in[i] = _add(g_in[i], g_bwd[i] * bwd[i + 1])
+                g_bwd[i + 1] = _add(g_bwd[i + 1], g_bwd[i] * ts[i])
+        g_in[d - 1] = _add(g_in[d - 1], g_bwd[d - 1])
+        # t = tanh(|m| / 2): dt/d|m| = (1 + t)(1 - t) / 2 (unmasked t)
+        g_abs = []
+        for m, g in zip(ms, g_in):
+            t = torch.tanh(torch.abs(m) / 2)
+            g_abs.append(None if g is None else g * (1 + t) * (1 - t) / 2)
+    else:
+        big = torch.tensor(1e30, dtype=ref.dtype, device=ref.device)
+        mags = []
+        for m, act in zip(ms, acts):
+            a = torch.abs(m)
+            mags.append(a if act is None else torch.where(act, a, big))
+        mins1 = [mags[0]]
+        for a in mags[1:]:
+            mins1.append(torch.minimum(mins1[-1], a))
+        min1 = mins1[-1]
+        ws = [torch.where(a > min1, a, big) for a in mags]
+        mins2 = [big]
+        for w in ws:
+            mins2.append(torch.minimum(mins2[-1], w))
+        min2 = mins2[-1]
+        n_min = sum((a == min1).to(a.dtype) for a in mags)
+        g_min1 = g_min2 = None
+        for a, g in zip(mags, g_out):
+            unique = (a == min1) & (n_min == 1)
+            ext = torch.where(unique, min2, min1)
+            if offset > 0.:
+                g = g * _d_max0(ext - offset)
+                ext = torch.clamp(ext - offset, min=0.)
+            g = g * _d_min(ext, clip)
+            g_min2 = _add(g_min2, torch.where(unique, g, 0.))
+            g_min1 = _add(g_min1, torch.where(unique, 0., g))
+        # min2 = minimum(... minimum(big, w[0]) ..., w[d-1]), reversed
+        for k in range(d - 1, -1, -1):
+            prev, z, w = mins2[k], mins2[k + 1], ws[k]
+            g_w = g_min2 * (w == z) * torch.where(prev == z, 0.5, 1.)
+            g_in[k] = _add(g_in[k], torch.where(mags[k] > min1, g_w, 0.))
+            g_min2 = g_min2 * (prev == z) * torch.where(w == z, 0.5, 1.)
+        # min1 = minimum(... minimum(a[0], a[1]) ..., a[d-1]), reversed
+        for k in range(d - 1, 0, -1):
+            prev, z, a = mins1[k - 1], mins1[k], mags[k]
+            g_in[k] = _add(g_in[k], g_min1 * (a == z)
+                           * torch.where(prev == z, 0.5, 1.))
+            g_min1 = g_min1 * (prev == z) * torch.where(a == z, 0.5, 1.)
+        g_in[0] = _add(g_in[0], g_min1)
+        g_abs = g_in
+    out = []
+    for m, g, act in zip(ms, g_abs, acts):
+        g = torch.zeros_like(m) if g is None else g * _d_abs(m)
+        out.append(g if act is None else torch.where(act, g, 0.))
+    return out
+
+
+def _row_grad(lifted, v2c, g_c2v, masks, eids):
+    """:func:`_row_adjoint` of base row ``eids`` of ``lifted``'s code."""
+    return _row_adjoint(v2c, g_c2v, masks, eids, lifted._edge_full,
+                        lifted._llr_max, lifted._offset, lifted._cn_mode)
+
+
+def _llr_vn(lifted, x):
+    """[B, num_vns] -> [B, C_b, Z], zero-padded (variable alignment)."""
+    pad = lifted._n_col_blocks * lifted._z - lifted._num_vns
+    return F.pad(x, (0, pad)).reshape(x.shape[0], -1, lifted._z)
+
+
+def _cn_phase(lifted, v2c, masks):
+    return _lifted_cn_phase(v2c, masks, lifted._row_edges,
+                            len(lifted._edges), lifted._llr_max,
+                            lifted._offset, lifted._cn_mode,
+                            lifted._edge_full)
+
+
+# ----------------------------------------------------------------------
+# The plain versions.
+# ----------------------------------------------------------------------
+
+def flooding_tape_forward(lifted, llr_int, num_iter):
+    """The flooding decode of ``lifted`` (an ``LDPC5GLiftedBP``: its
+    ``decode``, f32 storage, log1p form) and its tape.
+
+    Returns (marginals [B, num_vns], tape [num_iter, E, B, Z]): tape[t]
+    holds the CN-aligned v2c messages that iteration t reads, the carry of
+    JAX's ``fori_loop``."""
+    tape = llr_int.new_empty((num_iter, len(lifted._edges),
+                              llr_int.shape[0], lifted._z))
+    return lifted.decode(llr_int, num_iter, tape=tape), tape
+
+
+def flooding_reverse(lifted, llr_int, tape, g_marg):
+    """The reverse of :func:`flooding_tape_forward`: dL/dllr_int [B,
+    num_vns] from the LLRs, the tape and dL/dmarginals [B, num_vns].
+
+    Walks the iterations backwards; in each it recomputes the c2v
+    messages from the tape (as the decode computed them) and the VN sums,
+    then takes the VN phase's reverse (its clips, the rolls inverted) and
+    the CN phase's (:func:`_row_adjoint`)."""
+    num_iter = tape.shape[0]
+    if num_iter == 0:
+        return g_marg.clone()
+    batch = llr_int.shape[0]
+    clip = lifted._llr_max
+    edges = lifted._edges
+    llr_vn = _llr_vn(lifted, llr_int)
+    g_m = _llr_vn(lifted, g_marg)
+    masks = list(lifted.masks.to(llr_int.dtype))
+    g_llr = [torch.zeros_like(llr_vn[:, 0])
+             for _ in range(lifted._n_col_blocks)]
+    g_v2c = [None] * len(edges)  # d/d(v2c out of the iteration)
+    for it in range(num_iter - 1, -1, -1):
+        v2c = list(tape[it])
+        c2v = _cn_phase(lifted, v2c, masks)
+        g_c2v = [None] * len(edges)
+        for c in range(lifted._n_col_blocks):
+            eids = lifted._col_edges.get(c, [])
+            rolled = [torch.roll(c2v[e], edges[e][2], dims=-1) for e in eids]
+            tot = llr_vn[:, c]
+            for x in rolled:
+                tot = tot + x
+            g_tot = (g_m[:, c] * _d_clip(tot, clip) if it == num_iter - 1
+                     else torch.zeros_like(tot))
+            hs = []
+            for e, x in zip(eids, rolled):
+                h = None if g_v2c[e] is None else torch.roll(
+                    g_v2c[e], edges[e][2], dims=-1) * _d_clip(tot - x, clip)
+                hs.append(h)
+                g_tot = _add(g_tot, h)
+            for e, h in zip(eids, hs):
+                g_x = g_tot if h is None else g_tot - h
+                g_c2v[e] = torch.roll(g_x, -edges[e][2], dims=-1)
+            g_llr[c] = g_llr[c] + g_tot
+        g_v2c = [None] * len(edges)
+        for eids in lifted._row_edges.values():
+            for e, g in zip(eids, _row_grad(lifted, v2c, g_c2v, masks, eids)):
+                g_v2c[e] = g
+    # v2c of iteration 0 = roll(clip(llr), -s)
+    for c in range(lifted._n_col_blocks):
+        acc = None
+        for e in lifted._col_edges.get(c, []):
+            acc = _add(acc, torch.roll(g_v2c[e], edges[e][2], dims=-1))
+        if acc is not None:
+            g_llr[c] = g_llr[c] + _d_clip(llr_vn[:, c], clip) * acc
+    out = torch.stack(g_llr, dim=1).reshape(batch, -1)
+    return out[:, :lifted._num_vns]
+
+
+def layered_tape_forward(lifted, llr_int, num_iter):
+    """The layered decode of ``lifted`` (its ``decode_layered``, f32
+    storage) and its tape.
+
+    Returns (marginals [B, num_vns], tape_marg [num_iter, C_b, B, Z],
+    tape_c2v [num_iter, E, B, Z]): each iteration's starting posterior
+    and c2v messages."""
+    batch, z = llr_int.shape[0], lifted._z
+    tape_m = llr_int.new_empty((num_iter, lifted._n_col_blocks, batch, z))
+    tape_c = llr_int.new_empty((num_iter, len(lifted._edges), batch, z))
+    marg = lifted.decode_layered(llr_int, num_iter, tape_marg=tape_m,
+                                 tape_c2v=tape_c)
+    return marg, tape_m, tape_c
+
+
+def layered_reverse(lifted, llr_int, tape_m, tape_c, g_marg):
+    """The reverse of :func:`layered_tape_forward`: dL/dllr_int [B,
+    num_vns] from the tapes and dL/dmarginals [B, num_vns].
+
+    For each iteration, backwards: replays its row sweep from the tape
+    (the posterior as each row saw it, so every edge's v2c), then walks
+    its rows backwards through each row's posterior update, check node
+    and v2c subtraction."""
+    num_iter = tape_m.shape[0]
+    edges = lifted._edges
+    n_e = len(edges)
+    masks = list(lifted.masks.to(llr_int.dtype))
+    g_m = _llr_vn(lifted, g_marg)
+    g_post = [g_m[:, c] for c in range(lifted._n_col_blocks)]
+    g_c2v = [None] * n_e
+    rows = list(lifted._row_edges.items())
+    for it in range(num_iter - 1, -1, -1):
+        marg = list(tape_m[it])
+        c2v_old = list(tape_c[it])
+        v2c = [None] * n_e
+        for r, eids in rows:
+            for e in eids:
+                _, c, s = edges[e]
+                v2c[e] = torch.roll(marg[c], -s, dims=-1) - c2v_old[e]
+            c2v_new = _lifted_cn_phase(
+                v2c, masks, {r: eids}, n_e, lifted._llr_max,
+                lifted._offset, lifted._cn_mode, lifted._edge_full)
+            for e in eids:
+                _, c, s = edges[e]
+                marg[c] = marg[c] + torch.roll(c2v_new[e] - c2v_old[e], s,
+                                               dims=-1)
+        for _, eids in reversed(rows):
+            g_new, g_pm = [None] * n_e, {}
+            for e in eids:
+                _, c, s = edges[e]
+                g_pm[e] = torch.roll(g_post[c], -s, dims=-1)
+                g_new[e] = _add(g_c2v[e], g_pm[e])
+            g_v = _row_grad(lifted, v2c, g_new, masks, eids)
+            for e, g in zip(eids, g_v):
+                _, c, s = edges[e]
+                g_post[c] = g_post[c] + torch.roll(g, s, dims=-1)
+                g_c2v[e] = -g_pm[e] - g
+    out = torch.stack(g_post, dim=1).reshape(llr_int.shape[0], -1)
+    return out[:, :lifted._num_vns]
+
+
+# ----------------------------------------------------------------------
+# The CUDA kernels.
+# ----------------------------------------------------------------------
+
+def grad_plan(lifted):
+    """The int32 plan of the K5 kernels for the code of ``lifted``: the
+    row pointers into the edges (numbered row by row), each edge's column,
+    shift and cyclic active-lane range (lo | length << 16), and the column
+    pointers into the edge ids by column (``GRAD_PLAN_ARRAYS``). Raises
+    ValueError for a row degree outside ``CN_ROW_DEGREES`` or a mask that
+    is not one cyclic range."""
+    edges = lifted._edges
+    n_rows, n_cols = lifted._n_row_blocks, lifted._n_col_blocks
+    rows = [lifted._row_edges.get(r, []) for r in range(n_rows)]
+    ranges = _check_rows_and_ranges(lifted, rows, "K5")
+    row_ptr, row_ids = _csr(dict(enumerate(rows)), n_rows)
+    if row_ids != list(range(len(edges))):
+        raise ValueError("K5 takes edges numbered row by row")
+    col_ptr, col_ids = _csr(lifted._col_edges, n_cols)
+    arrays = [row_ptr, [c for _, c, _ in edges], [s for _, _, s in edges],
+              [lo | (n << 16) for lo, n in ranges], col_ptr, col_ids]
+    assert len(arrays) == len(GRAD_PLAN_ARRAYS)
+    return _pack_plan(arrays)
+
+
+def _plan_on(lifted, device):
+    """:func:`grad_plan` as an int32 tensor on ``device`` (cached)."""
+    plans = lifted._grad_plans
+    device = torch.device(device)
+    if device not in plans:
+        plans[device] = torch.as_tensor(grad_plan(lifted), device=device)
+    return plans[device]
+
+
+def _padded(lifted, x):
+    """[B, num_vns] -> contiguous [B, C_b * Z], zero-padded."""
+    pad = lifted._n_col_blocks * lifted._z - lifted._num_vns
+    return F.pad(x.detach(), (0, pad)).contiguous()
+
+
+def _launch(kern, fn_name, lifted, llr_int, num_iter, pointers, variant):
+    """Calls the C entry point ``fn_name`` of ``kern`` with ``pointers``
+    (tensors), the code's sizes and the check node's constants on the
+    current stream, raises on its error and counts the launch."""
+    plan = _plan_on(lifted, llr_int.device)
+    args = [t.data_ptr() for t in pointers[:1]] + [plan.data_ptr()] + \
+        [t.data_ptr() for t in pointers[1:]]
+    with torch.cuda.device(llr_int.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(kern.library(), fn_name)(
+            *args, llr_int.shape[0], lifted._n_row_blocks,
+            lifted._n_col_blocks, len(lifted._edges), lifted._z,
+            plan.numel(), num_iter, lifted._llr_max, lifted._offset,
+            0 if lifted._cn_mode == "boxplus" else 1, stream)
+    kern.check(err)
+    kern.count(variant + ("+minsum" if lifted._cn_mode == "minsum" else ""))
+
+
+def flooding_tape_cuda(lifted, llr_int, num_iter):
+    """K5f: :func:`flooding_tape_forward` as one launch of
+    ``csrc/ldpc_lifted_bp_grad.cu`` on the current stream, counted as
+    "forward". llr_int: f32 CUDA [B, num_vns] on the device of
+    ``lifted``'s tables. Its marginals are bit-identical to K1's."""
+    kern = LIFTED_BP_GRAD_KERNEL
+    _check_llrs(kern, lifted, llr_int, num_iter, None, "log1p")
+    z, batch, n_e = lifted._z, llr_int.shape[0], len(lifted._edges)
+    llr_p = _padded(lifted, llr_int)
+    out = torch.empty_like(llr_p)
+    tape = llr_p.new_empty((num_iter, n_e, batch, z))
+    if batch:
+        c2v = llr_p.new_empty((batch, n_e, z) if num_iter else (0,))
+        _launch(kern, "sionna_ldpc_flooding_tape", lifted, llr_int,
+                num_iter, (llr_p, out, tape, c2v), "forward")
+    return out[:, :lifted._num_vns], tape
+
+
+def flooding_reverse_cuda(lifted, llr_int, tape, g_marg):
+    """K5b: :func:`flooding_reverse` as one launch of
+    ``csrc/ldpc_lifted_bp_grad.cu`` on the current stream, counted as
+    "backward"."""
+    kern = LIFTED_BP_GRAD_KERNEL
+    num_iter = tape.shape[0]
+    _check_llrs(kern, lifted, llr_int, num_iter, None, "log1p")
+    z, batch, n_e = lifted._z, llr_int.shape[0], len(lifted._edges)
+    if tape.shape != (num_iter, n_e, batch, z) or not tape.is_contiguous():
+        raise ValueError(f"expected a contiguous tape [{num_iter}, {n_e}, "
+                         f"{batch}, {z}], got {tuple(tape.shape)}")
+    llr_p = _padded(lifted, llr_int)
+    g_p = _padded(lifted, g_marg.to(llr_p.dtype))
+    g_llr = torch.empty_like(llr_p)
+    if batch:
+        scratch = llr_p.new_empty((2, batch, n_e, z) if num_iter else (2, 0))
+        _launch(kern, "sionna_ldpc_flooding_reverse", lifted, llr_int,
+                num_iter, (llr_p, g_p, tape, g_llr, scratch[0], scratch[1]),
+                "backward")
+    return g_llr[:, :lifted._num_vns]
+
+
+def layered_tape_cuda(lifted, llr_int, num_iter):
+    """K5Lf: :func:`layered_tape_forward` as one launch of
+    ``csrc/ldpc_layered_bp_grad.cu`` on the current stream, counted as
+    "forward". Its marginals are bit-identical to K3's."""
+    kern = LAYERED_BP_GRAD_KERNEL
+    _check_llrs(kern, lifted, llr_int, num_iter, None, "log1p")
+    z, batch, n_e = lifted._z, llr_int.shape[0], len(lifted._edges)
+    llr_p = _padded(lifted, llr_int)
+    out = torch.empty_like(llr_p)
+    tape_m = llr_p.new_empty((num_iter, lifted._n_col_blocks, batch, z))
+    tape_c = llr_p.new_empty((num_iter, n_e, batch, z))
+    if batch:
+        _launch(kern, "sionna_ldpc_layered_tape", lifted, llr_int, num_iter,
+                (llr_p, out, tape_m, tape_c), "forward")
+    return out[:, :lifted._num_vns], tape_m, tape_c
+
+
+def layered_reverse_cuda(lifted, llr_int, tape_m, tape_c, g_marg):
+    """K5Lb: :func:`layered_reverse` as one launch of
+    ``csrc/ldpc_layered_bp_grad.cu`` on the current stream, counted as
+    "backward"."""
+    kern = LAYERED_BP_GRAD_KERNEL
+    num_iter = tape_m.shape[0]
+    _check_llrs(kern, lifted, llr_int, num_iter, None, "log1p")
+    z, batch, n_e = lifted._z, llr_int.shape[0], len(lifted._edges)
+    n_cols = lifted._n_col_blocks
+    for name, t, shape in (("tape_m", tape_m, (num_iter, n_cols, batch, z)),
+                           ("tape_c", tape_c, (num_iter, n_e, batch, z))):
+        if t.shape != shape or not t.is_contiguous():
+            raise ValueError(f"expected a contiguous {name} {list(shape)}, "
+                             f"got {tuple(t.shape)}")
+    llr_p = _padded(lifted, llr_int)
+    g_p = _padded(lifted, g_marg.to(llr_p.dtype))
+    g_llr = torch.empty_like(llr_p)
+    if batch:
+        post = llr_p.new_empty((batch, n_cols, z))
+        scratch = llr_p.new_empty((2, batch, n_e, z))
+        _launch(kern, "sionna_ldpc_layered_reverse", lifted, llr_int,
+                num_iter, (llr_p, g_p, tape_m, tape_c, g_llr, post,
+                           scratch[0], scratch[1]), "backward")
+    return g_llr[:, :lifted._num_vns]
+
+
+class LiftedBPFunction(torch.autograd.Function):
+    """The lifted decode of an ``LDPC5GLiftedBP`` with its gradient:
+    ``LiftedBPFunction.apply(llr_int, lifted, num_iter, layered)``.
+
+    CUDA tensors: the forward launches K5f (or K5Lf), whose marginals are
+    K1's (K3's), and keeps the tape for the backward, which launches K5b
+    (K5Lb). CPU tensors: the plain tape forward and reverse."""
+
+    @staticmethod
+    def forward(ctx, llr_int, lifted, num_iter, layered):
+        if llr_int.is_cuda:
+            run = layered_tape_cuda if layered else flooding_tape_cuda
+        elif llr_int.device.type == "cpu":
+            run = layered_tape_forward if layered else flooding_tape_forward
+        else:
+            raise ValueError(f"no lifted BP decoder for {llr_int.device}")
+        marg, *tapes = run(lifted, llr_int, num_iter)
+        ctx.lifted, ctx.layered = lifted, layered
+        ctx.save_for_backward(llr_int, *tapes)
+        return marg
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_marg):
+        llr_int, *tapes = ctx.saved_tensors
+        if llr_int.is_cuda:
+            run = layered_reverse_cuda if ctx.layered \
+                else flooding_reverse_cuda
+        else:
+            run = layered_reverse if ctx.layered else flooding_reverse
+        return run(ctx.lifted, llr_int, *tapes, g_marg), None, None, None
+
+
+def lifted_bp_grad(lifted, llr_int, num_iter, layered=False):
+    """Marginals [B, num_vns] of the lifted decode of ``llr_int`` [B,
+    num_vns] (classic convention) after ``num_iter`` flooding or
+    (``layered``) layered iterations, differentiable with respect to
+    ``llr_int`` (:class:`LiftedBPFunction`)."""
+    return LiftedBPFunction.apply(llr_int, lifted, num_iter, layered)

@@ -1,7 +1,8 @@
 """FP32 operation counts of the CUDA math functions the LDPC kernels call,
 read from the SASS that ``nvcc`` makes of them on this machine, and the
-operation count of one boxplus edge-lane update built from them: the
-operation side of the kernels' bounds in ``chip_smoke.py``.
+operation count of one boxplus edge-lane update built from them, and of
+one update of the gradient's reverse: the operation side of the kernels'
+bounds in ``chip_smoke.py``.
 
 Each function is compiled alone into a probe kernel (``y[i] = f(x[i])``)
 for ``sm_90a``, and ``cuobjdump -sass`` lists its instructions. Only the
@@ -66,6 +67,23 @@ OTHER_OPS = 19
 # minima. The offset's subtraction and clamp are skipped at offset 0
 # (min-sum).
 MINSUM_OPS = 12
+# FP32 operations of one boxplus edge-lane update of the gradient's
+# reverse (K5b, K5Lb) besides one forward update (``ops_per_update``,
+# whose tanh, products and magnitude it reuses) and one division (the
+# ``fdiv`` probe), counted from the function (XLA's autodiff of the JAX
+# package's lifted decode), not from ldpc_cn_grad.cuh's code for it, with
+# the constants 2 of 2 atanh and 1/2 of tanh(|m|/2) folded. CN: the c2v
+# gradient times the edge's sign (1), the clip's mask (compare and
+# select, 2), d 2atanh(x)/dx = 2 / (1 - x^2) as an FFMA and the division
+# and the multiply by the gradient (3), the mask of the clamp at 1 - 1e-7
+# (2), the reverse of the prefix and suffix products (a multiply and an
+# FFMA for the edge's input, and for each of the two chains, 9), dt/dm =
+# (1 - t^2) sign(m) / 2 as an FFMA, a multiply and the sign (4): 21. VN,
+# flooding: the v2c clip's mask (|x| and compare, 2), its multiply, the
+# sum over the column and the edge's own term out of it (3): 5; layered:
+# the posterior's gradient into the edge's, the edge's into the
+# posterior's and the old c2v's (3).
+ADJOINT_OPS = {"flooding": 26, "layered": 24}
 _INSN = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)"
                    r"\s*([^;]*);")
 _FP = re.compile(r"^((?!FLO)F[A-Z0-9]+|MUFU)(\.|$)")
@@ -152,10 +170,22 @@ def ops_per_update(counts):
             for form, funcs in forms.items()}
 
 
+def backward_ops_per_update(counts, layered):
+    """FP32 operations of one boxplus (log1p form) edge-lane update of the
+    gradient kernels' reverse: a forward update, a division and
+    ``ADJOINT_OPS``."""
+    return (ops_per_update(counts)["log1p"][1] + counts["fdiv"][1]
+            + ADJOINT_OPS["layered" if layered else "flooding"])
+
+
 def main():
     counts = function_ops()
     print(json.dumps({"function_ops": counts,
-                      "ops_per_update": ops_per_update(counts)}))
+                      "ops_per_update": ops_per_update(counts),
+                      "backward_ops_per_update": {
+                          sched: backward_ops_per_update(
+                              counts, sched == "layered")
+                          for sched in ADJOINT_OPS}}))
 
 
 if __name__ == "__main__":
