@@ -287,18 +287,21 @@ render traces its rays through phase 30's intersection code.
 36. the gradient kernels of the lifted decoder (a fresh process,
     ``grad_phases``): K5f and K5b (``csrc/ldpc_lifted_bp_grad.cu``), K5Lf
     and K5Lb (``csrc/ldpc_layered_bp_grad.cu``), built in phase 2 beside
-    K1 and K3. For the four codes of phases 3-4 and the three check-node
-    rules: K5f's marginals identical to K1's (K5Lf's to K3's) at 0, 1, 5
+    K1 and K3. For the codes of phases 3-4 (the largest 5G code too, whose
+    backward layouts differ) and the three check-node rules: K5f's
+    marginals identical to K1's (K5Lf's to K3's) at 0, 1, 5
     and 20 iterations (10 layered); at 0, 1 and 5 its tapes identical to
     the plain tape forward's (``lifted_grad.flooding_tape_forward``,
     ``layered_tape_forward``) and K5b (K5Lb) on that tape against the
     plain reverse on the card, the largest error over the largest
     |gradient| within ``GRAD_REL_TOL``. Then at the link's n=2048 x 2000
     and the flagship's n=12288 x 2048 (BP-20, layered-10, boxplus): the
-    same three checks on the calls that it times, ms per call (CUDA
-    events, warm-up excluded) of the tape kernel, the backward kernel and
-    K1/K3 alone, of the plain tape forward and reverse, each kernel's
-    bound, the peak memory of a forward and backward;
+    same three checks on the calls that it times (and the timed
+    backward calls identical to the first), ms per call (CUDA events,
+    warm-up excluded) of the tape kernel, the backward kernel and K1/K3
+    alone, of the plain tape forward and reverse, each kernel's bound,
+    the peak memory of a forward and backward and of the backward alone,
+    the backward kernels' layouts;
 37. trains a 16-QAM constellation through the quick-start link at full
     width (``TRAIN``: ``LDPC5GEncoder(1024, 2048)``, ``Mapper`` with
     ``points=``, ``AWGN``, ``Demapper("app", points=)``,
@@ -393,6 +396,10 @@ from sionna_tpu_torch.phy.signal import (CustomFilter, Downsampling,
 from sionna_tpu_torch.phy.utils import Profiler, ebnodb2no, sim_ber
 from sionna_tpu_torch.sys import PHYAbstraction
 from sionna_tpu_torch.tools import ldpc_tune, sass_ops
+# phase 36: a backward kernel against the plain reverse on the same tape,
+# the largest |error| over the largest |gradient| (two f32 sums of the
+# same terms in other orders)
+from sionna_tpu_torch.tools.kernel_compare import GRAD_REL_TOL
 from sionna_tpu_torch.tools.sys_slots import DownlinkSlots, MulticellSlots
 
 LINK = dict(k=1024, n=2048, nbps=4, batch=2000, num_iter=20)
@@ -421,10 +428,6 @@ GRAD_VARIANTS = [
     ("ldpc_layered_bp_grad_backward", "K5Lb", LAYERED_BP_GRAD_KERNEL,
      "backward", LAYERED_BP_GRAD_KERNEL.replaces),
 ]
-# phase 36: a backward kernel against the plain reverse on the same tape,
-# the largest |error| over the largest |gradient| (two f32 sums of the
-# same terms in other orders)
-GRAD_REL_TOL = 1e-5
 # phase 37: the training step (the quick-start link with a trainable
 # constellation and the decoder in the loss)
 TRAIN = dict(k=1024, n=2048, nbps=4, batch=2000, ebno_db=3.0, steps=10,
@@ -4875,7 +4878,7 @@ def grad_ptxas_report(kern):
     lines, entry = [], None
     for line in kern.build_log.splitlines():
         m = re.search(r"Compiling entry function '.*?\d+((?:flooding|layered)"
-                      r"_(?:tape|reverse)_kernel)E", line)
+                      r"_(?:tape|reverse)_kernel(?:I(?:L[bi]\d+E)+E)?)", line)
         if m:
             entry = m.group(1)
         elif entry and ("registers" in line or "spill" in line
@@ -4915,6 +4918,19 @@ def grad_calls(lift, layered):
             lifted_grad.flooding_tape_forward, lifted_grad.flooding_reverse)
 
 
+def grad_layout_text(lift, layered):
+    """The backward kernel's layout for ``lift``, in words."""
+    if layered:
+        lay = lift._grad_plans["k5lb"]
+        return (f"K5Lb layout: one block of {lay.threads} threads, "
+                f"{lay.smem_bytes} B, v2c in device memory, dL/dc2v in "
+                f"{'shared' if lay.gc_on_chip else 'device'} memory")
+    lay = lift._grad_plans["k5b"]
+    return (f"K5b layout: {lay.cluster} block(s), {lay.threads} threads, "
+            f"{lay.smem_bytes} B, tape rows "
+            f"{'staged by cp.async' if lay.staged else 'read from the tape'}")
+
+
 def check_grad(got, want, what):
     """Raises unless the backward kernel's ``got`` is finite and within
     GRAD_REL_TOL of the largest |gradient| of the plain reverse's
@@ -4931,21 +4947,24 @@ def check_grad(got, want, what):
 
 
 def check_grad_kernels(dev, layered):
-    """Phase 36, first part: for the four codes of phases 3-4 and three
-    check-node rules, the tape kernel's marginals identical to K1's (K3's)
-    at 0, 1, 5 and 20 (10) iterations; at 0, 1 and 5 its tapes identical
-    to the plain tape forward's and the backward kernel on that tape
-    against the plain reverse, within GRAD_REL_TOL of the largest
-    |gradient| (the plain reverse at 20 iterations is phase 36's second
-    part, at the main path's shapes). Returns {kernels-line name: max
-    |kernel - plain|}."""
+    """Phase 36, first part: for the codes of phases 3-4 (n=25344 too)
+    and three check-node rules, the tape kernel's marginals identical to
+    K1's (K3's) at 0, 1, 5 and 20 (10) iterations; at 0, 1 and 5 its
+    tapes identical to the plain tape forward's and the backward kernel
+    on that tape against the plain reverse, within GRAD_REL_TOL of the
+    largest |gradient| (the plain reverse at 20 iterations is phase 36's
+    second part, at the main path's shapes). Returns {kernels-line name:
+    max |kernel - plain|}."""
     gen = torch.Generator(device=dev).manual_seed(36)
     names = [v[0] for v in GRAD_VARIANTS if (v[2] is LAYERED_BP_GRAD_KERNEL)
              == layered]
     max_err = dict.fromkeys(names, 0.0)
     iters, deep = (0, 1, 5), 10 if layered else 20
+    # and the largest 5G code, whose backward layouts differ (K5b a cluster
+    # of 6, K5Lb 209 KB of posterior and dL/dpost in one block)
     codes = [(100, 200, None, 256), (LINK["k"], LINK["n"], LINK["nbps"], 500),
-             (6144, 12288, None, 128), (8448, 16896, None, 32)]
+             (6144, 12288, None, 128), (8448, 16896, None, 32),
+             (8448, 25344, None, 16)]
     worst = 0.0
     for k, n, nbps, batch in codes:
         enc = LDPC5GEncoder(k, n, num_bits_per_symbol=nbps, device=dev)
@@ -5030,9 +5049,14 @@ def time_grad_kernels(dev, card, function_ops, max_err):
             torch.cuda.reset_peak_memory_stats()
             before = torch.cuda.memory_allocated()
             marg, *tapes = tape_k(lift, llr, it)
+            torch.cuda.synchronize()
+            mid = torch.cuda.memory_allocated()
+            f_peak = torch.cuda.max_memory_allocated() - before
+            torch.cuda.reset_peak_memory_stats()
             got = back_k(lift, llr, *tapes, g)
             torch.cuda.synchronize()
-            peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+            b_peak = torch.cuda.max_memory_allocated() - mid
+            peak = max(f_peak, mid - before + b_peak) / 2**30
             # a timed call that is compared keeps its output in `res`
             res = {}
             with torch.no_grad():
@@ -5052,13 +5076,20 @@ def time_grad_kernels(dev, card, function_ops, max_err):
                     raise AssertionError(f"{f_name} at {shape}: tape off "
                                          f"the plain tape forward's")
             f2 = cuda_ms(lambda: tape_k(lift, llr, it), 5)
-            b1 = cuda_ms(lambda: back_k(lift, llr, *tapes, g), 5)
+            # the timed backward calls give the first call's gradient
+            timed_back = kept(res, "back", lambda: back_k(lift, llr, *tapes,
+                                                          g))
+            b1 = cuda_ms(timed_back, 5)
+            assert_identical(res.pop("back"), got, f"{b_name} at {shape}: "
+                             f"a timed call against the first")
             pb = cuda_ms(kept(res, "plain",
                               lambda: back_p(lift, llr, *tapes, g)), 1)
             err, rel = check_grad(got, res.pop("plain"),
                                   f"{b_name} at {shape}")
             max_err[b_name] = max(max_err[b_name], err)
-            b2 = cuda_ms(lambda: back_k(lift, llr, *tapes, g), 5)
+            b2 = cuda_ms(timed_back, 5)
+            assert_identical(res.pop("back"), got, f"{b_name} at {shape}: "
+                             f"a timed call against the first")
             fb = grad_bound(lift, batch, it, fwd_ops, layered)
             bb = grad_bound(lift, batch, it, sass_ops.backward_ops_per_update(
                 function_ops, layered), layered)
@@ -5075,7 +5106,9 @@ def time_grad_kernels(dev, card, function_ops, max_err):
                   f"{(min(f1, f2) + min(b1, b2)) / k_ms:.2f} x K"
                   f"{3 if layered else 1}; plain tape forward {pf:.1f} ms, "
                   f"plain reverse {pb:.1f} ms; tape {tape_gb:.3f} GB, peak "
-                  f"{peak:.2f} GiB above the inputs, on {card}")
+                  f"{peak:.2f} GiB above the inputs (backward kernel "
+                  f"{b_peak / 2**30:.3f} GiB above the tape), on {card}; "
+                  f"{grad_layout_text(lift, layered)}")
             del marg, tapes, got
             if n == LINK["n"]:
                 out[f_name] = ((f1 + f2) / 2, pf, fb, shape)

@@ -983,7 +983,7 @@ class LDPC5GLiftedBP(nn.Module):
         self._k1_plans = {}  # K1's plan by device (k1_plan)
         self._k3_layouts = {}  # K3's layout by storage dtype (k3_layout)
         self._k3_plans = {}  # K3's plan by device (k3_plan)
-        self._grad_plans = {}  # the K5 kernels' plan by device (lifted_grad)
+        self._grad_plans = {}  # K5 layouts and plans (lifted_grad)
 
     def k1_layout(self):
         """:func:`lifted_bp_layout` of this code (cached)."""
@@ -1258,6 +1258,98 @@ def _pack_plan(arrays, align=1):
     return np.concatenate(parts).astype(np.int32)
 
 
+class _FloodingTables(NamedTuple):
+    """What the flooding kernels' layouts (K1's, K5b's) take from the code
+    alone (see :func:`_flooding_tables`)."""
+
+    rows: list         # per base row, its edge ids
+    cols: list         # per base column, its edge ids
+    ranges: tuple      # per edge: cyclic active lanes (lo, length)
+    reg_of_row: dict   # row -> position of its register edge in the row
+    reg_rows: list     # the rows with a register edge, in order
+    reg_edges: tuple   # their register edges
+    plain_rows: list   # the other rows that have edges
+    vn_cols: list      # the columns without a register edge
+    shared: list       # the edges whose slots live in shared memory
+    plan_len: int      # ints of the plan
+
+
+def _flooding_tables(lifted, name):
+    """The register edges (each base row's first edge whose column has
+    degree 1), the rows and columns around them and the length of the
+    plan of a flooding kernel's layout (K1's or K5b's, ``name``) for the
+    code of ``lifted``. Raises ValueError for a row degree outside
+    ``CN_ROW_DEGREES`` or a mask that is not one cyclic range."""
+    edges = lifted._edges
+    n_e = len(edges)
+    n_rows, n_cols = lifted._n_row_blocks, lifted._n_col_blocks
+    rows = [lifted._row_edges.get(r, []) for r in range(n_rows)]
+    cols = [lifted._col_edges.get(c, []) for c in range(n_cols)]
+    ranges = _check_rows_and_ranges(lifted, rows, name)
+    reg_of_row = {}
+    for r, eids in enumerate(rows):
+        for p, e in enumerate(eids):
+            if len(cols[edges[e][1]]) == 1:
+                reg_of_row[r] = p
+                break
+    reg_rows = sorted(reg_of_row)
+    reg_edges = tuple(rows[r][reg_of_row[r]] for r in reg_rows)
+    reg_cols = {edges[e][1] for e in reg_edges}
+    plain_rows = [r for r in range(n_rows) if rows[r] and r not in reg_of_row]
+    vn_cols = [c for c in range(n_cols) if c not in reg_cols]
+    shared = [e for e in range(n_e) if e not in set(reg_edges)]
+    plan_len = len(K1_PLAN_ARRAYS) + n_rows + 1 + n_cols + 1 + 4 * n_e + \
+        4 * len(reg_rows) + len(plain_rows) + len(vn_cols)
+    return _FloodingTables(rows, cols, ranges, reg_of_row, reg_rows,
+                           reg_edges, plain_rows, vn_cols, shared, plan_len)
+
+
+def _flooding_slots(tables, n_edges, cluster):
+    """Per edge its slot (owner block, index) or None (a register edge):
+    the shared edges split into ``cluster`` contiguous groups of edge
+    ids, one per block. Returns (slots, the most slots of a block)."""
+    shared = tables.shared
+    slots = [None] * n_edges
+    counts = [0] * cluster
+    for m, e in enumerate(shared):
+        owner = m * cluster // len(shared)
+        slots[e] = (owner, counts[owner])
+        counts[owner] += 1
+    return tuple(slots), max(counts)
+
+
+def _flooding_plan(lifted, tables, slots):
+    """The int32 plan (``K1_PLAN_ARRAYS``) of a flooding kernel's layout:
+    the row and column tables with each edge's slot id (owner block << 16
+    | index, -1 for a register edge), range and shift, and the register
+    and plain rows and the VN columns."""
+    edges = lifted._edges
+    t = tables
+
+    def slot_id(e):
+        return -1 if slots[e] is None else (slots[e][0] << 16) | slots[e][1]
+
+    row_ptr, row_ids = _csr(dict(enumerate(t.rows)), len(t.rows))
+    col_ptr, col_ids = _csr(dict(enumerate(t.cols)), len(t.cols))
+    arrays = [
+        row_ptr,
+        [slot_id(e) for e in row_ids],
+        [t.ranges[e][0] | (t.ranges[e][1] << 16) for e in row_ids],
+        col_ptr,
+        [slot_id(e) for e in col_ids],
+        [edges[e][2] for e in col_ids],
+        t.reg_rows,
+        [t.reg_of_row[r] for r in t.reg_rows],
+        [edges[e][1] for e in t.reg_edges],
+        [edges[e][2] for e in t.reg_edges],
+        t.plain_rows,
+        t.vn_cols,
+    ]
+    plan = _pack_plan(arrays)
+    assert len(arrays) == len(K1_PLAN_ARRAYS) and plan.size == t.plan_len
+    return plan
+
+
 def lifted_bp_layout(lifted):
     """The layout of K1 (``csrc/ldpc_lifted_bp.cu``) for the code of
     ``lifted``: which edges keep their message slots in registers, how
@@ -1285,78 +1377,30 @@ def lifted_bp_layout(lifted):
     outside ``CN_ROW_DEGREES``, a mask that is not one cyclic range, no
     cluster of up to ``K1_MAX_CLUSTER`` blocks that holds the state)."""
     z = lifted._z
-    edges = lifted._edges
-    n_e = len(edges)
-    n_rows, n_cols = lifted._n_row_blocks, lifted._n_col_blocks
-    rows = [lifted._row_edges.get(r, []) for r in range(n_rows)]
-    cols = [lifted._col_edges.get(c, []) for c in range(n_cols)]
-    ranges = _check_rows_and_ranges(lifted, rows, "K1")
-
-    reg_of_row = {}
-    for r, eids in enumerate(rows):
-        for p, e in enumerate(eids):
-            if len(cols[edges[e][1]]) == 1:
-                reg_of_row[r] = p
-                break
-    reg_rows = sorted(reg_of_row)
-    reg_edges = tuple(rows[r][reg_of_row[r]] for r in reg_rows)
-    reg_cols = {edges[e][1] for e in reg_edges}
-    plain_rows = [r for r in range(n_rows) if rows[r] and r not in reg_of_row]
-    vn_cols = [c for c in range(n_cols) if c not in reg_cols]
-    shared = [e for e in range(n_e) if e not in set(reg_edges)]
-
-    plan_len = len(K1_PLAN_ARRAYS) + n_rows + 1 + n_cols + 1 + 4 * n_e + \
-        4 * len(reg_rows) + len(plain_rows) + len(vn_cols)
-    units = max(n_rows * z, len(vn_cols) * z)
+    t = _flooding_tables(lifted, "K1")
+    units = max(len(t.rows) * z, len(t.vn_cols) * z)
     for cluster in range(1, K1_MAX_CLUSTER + 1):
-        per_block = -(-len(shared) // cluster)
-        if (per_block * z + plan_len) * 4 > SMEM_PER_BLOCK:
+        per_block = -(-len(t.shared) // cluster)
+        if (per_block * z + t.plan_len) * 4 > SMEM_PER_BLOCK:
             continue
         threads = min(K1_MAX_THREADS, -(-units // (cluster * 32)) * 32)
-        per_thread = -(-len(reg_rows) * z // (cluster * threads))
+        per_thread = -(-len(t.reg_rows) * z // (cluster * threads))
         if per_thread <= K1_REG_UNITS[cluster > 1]:
             break
     else:
         raise ValueError(
-            f"no K1 layout takes this code: {len(shared)} shared edges "
-            f"and {len(reg_rows)} register edges of {z} lanes need more "
+            f"no K1 layout takes this code: {len(t.shared)} shared edges "
+            f"and {len(t.reg_rows)} register edges of {z} lanes need more "
             f"than {K1_MAX_CLUSTER} blocks of {K1_MAX_THREADS} threads")
-
-    slots = [None] * n_e
-    counts = [0] * cluster
-    for m, e in enumerate(shared):
-        owner = m * cluster // len(shared)
-        slots[e] = (owner, counts[owner])
-        counts[owner] += 1
-    state_floats = max(counts) * z
-
-    def slot_id(e):
-        return -1 if slots[e] is None else (slots[e][0] << 16) | slots[e][1]
-
-    row_ptr, row_ids = _csr(dict(enumerate(rows)), n_rows)
-    col_ptr, col_ids = _csr(dict(enumerate(cols)), n_cols)
-    arrays = [
-        row_ptr,
-        [slot_id(e) for e in row_ids],
-        [ranges[e][0] | (ranges[e][1] << 16) for e in row_ids],
-        col_ptr,
-        [slot_id(e) for e in col_ids],
-        [edges[e][2] for e in col_ids],
-        reg_rows,
-        [reg_of_row[r] for r in reg_rows],
-        [edges[e][1] for e in reg_edges],
-        [edges[e][2] for e in reg_edges],
-        plain_rows,
-        vn_cols,
-    ]
-    plan = _pack_plan(arrays)
-    assert len(arrays) == len(K1_PLAN_ARRAYS) and plan.size == plan_len
+    slots, per_block = _flooding_slots(t, len(lifted._edges), cluster)
+    state_floats = per_block * z
     return LiftedBPLayout(
         threads=threads, cluster=cluster,
-        smem_bytes=(state_floats + plan_len) * 4, state_floats=state_floats,
-        reg_edges=reg_edges, slots=tuple(slots), ranges=ranges,
-        reg_units_per_thread=per_thread, n_reg_rows=len(reg_rows),
-        n_plain_rows=len(plain_rows), n_vn_cols=len(vn_cols), plan=plan)
+        smem_bytes=(state_floats + t.plan_len) * 4,
+        state_floats=state_floats, reg_edges=t.reg_edges, slots=slots,
+        ranges=t.ranges, reg_units_per_thread=per_thread,
+        n_reg_rows=len(t.reg_rows), n_plain_rows=len(t.plain_rows),
+        n_vn_cols=len(t.vn_cols), plan=_flooding_plan(lifted, t, slots))
 
 
 class LayeredBPLayout(NamedTuple):
@@ -1401,17 +1445,17 @@ class _LayeredBPPlan(NamedTuple):
     plan: np.ndarray
 
 
-def _layered_bp_plan(lifted):
+def _layered_bp_plan(lifted, name="K3"):
     """K3's row steps, the edges of its largest step, each edge's c2v slot
     and cyclic active-lane range, and the int32 plan (the same for both
-    storage types; see :func:`layered_bp_layout`). Raises ValueError for a
-    row degree outside ``CN_ROW_DEGREES`` or a mask that is not one cyclic
-    range."""
+    storage types; see :func:`layered_bp_layout`; K5Lb reads the same
+    plan). Raises ValueError, naming kernel ``name``, for a row degree
+    outside ``CN_ROW_DEGREES`` or a mask that is not one cyclic range."""
     z = lifted._z
     edges = lifted._edges
     n_rows = lifted._n_row_blocks
     rows = [lifted._row_edges.get(r, []) for r in range(n_rows)]
-    ranges = _check_rows_and_ranges(lifted, rows, "K3")
+    ranges = _check_rows_and_ranges(lifted, rows, name)
     steps = _row_steps(lifted, rows)
     row_ptr, row_ids = _csr(dict(enumerate(rows)), n_rows)
     arrays = [

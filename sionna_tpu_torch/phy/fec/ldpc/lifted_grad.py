@@ -16,7 +16,9 @@ hand, in two forms that compute the same function:
   (``csrc/ldpc_lifted_bp_grad.cu``), K5Lf and K5Lb
   (``csrc/ldpc_layered_bp_grad.cu``), behind :func:`flooding_tape_cuda`,
   :func:`flooding_reverse_cuda`, :func:`layered_tape_cuda` and
-  :func:`layered_reverse_cuda`.
+  :func:`layered_reverse_cuda`. The backward kernels keep their state on
+  chip in the layouts that :func:`flooding_grad_layout` and
+  :func:`layered_grad_layout` plan.
 
 :class:`LiftedBPFunction` is the ``torch.autograd.Function`` that
 ``LDPC5GLiftedBP`` calls when the LLRs require grad. On a CUDA tensor its
@@ -40,29 +42,60 @@ posteriors (C base columns).
 """
 
 import ctypes
+from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ...._build import CudaKernel
-from .decoding import (_CN_DEFINES, _F, _I, _P, _check_llrs,
-                       _check_rows_and_ranges, _csr, _lifted_cn_phase,
-                       _pack_plan)
+from .decoding import (_CN_DEFINES, _F, _I, _P, K1_PLAN_ARRAYS,
+                       K3_PLAN_ARRAYS, SMEM_PER_BLOCK, SMEM_PER_SM,
+                       _check_llrs,
+                       _check_rows_and_ranges, _csr, _flooding_plan,
+                       _flooding_slots, _flooding_tables, _layered_bp_plan,
+                       _lifted_cn_phase, _pack_plan)
 
 __all__ = ["LiftedBPFunction", "lifted_bp_grad", "flooding_tape_forward",
            "flooding_reverse", "layered_tape_forward", "layered_reverse",
            "flooding_tape_cuda", "flooding_reverse_cuda",
            "layered_tape_cuda", "layered_reverse_cuda", "grad_plan",
+           "flooding_grad_layout", "layered_grad_layout",
+           "FloodingGradLayout", "LayeredGradLayout",
            "LIFTED_BP_GRAD_KERNEL", "LAYERED_BP_GRAD_KERNEL"]
 
-#: The arrays of the K5 kernels' plan, in order; the plan starts with
-#: their offsets (``decoding._pack_plan``).
+#: The arrays of the K5f/K5Lf plan, in order; the plan starts with their
+#: offsets (``decoding._pack_plan``).
 GRAD_PLAN_ARRAYS = ("row_ptr", "edge_col", "edge_shift", "edge_range",
                     "col_ptr", "col_edge")
-#: Threads per block of K5f and K5b (one codeword per block).
+#: Threads per block of K5f (one codeword per block).
 K5_THREADS = 256
+# Limits of the backward kernels' layouts, defined here only (nvcc gets
+# them as defines). K5b: threads per block (its launch bound: 384 leave a
+# thread 168 registers for the check node's adjoint), blocks per cluster
+# (the portable most), register-edge CN units per thread. Its plan is
+# K1's (``K1_PLAN_ARRAYS``).
+K5B_MAX_THREADS = 384
+K5B_MAX_CLUSTER = 8
+K5B_REG_UNITS = 8
+# K5Lb: threads per block and the blocks of that size an SM must hold
+# (its launch bound: at most 85 registers a thread; the walk's one
+# thread per lane is latency-bound, so lanes in flight beat spills). Its
+# plan is K3's (``K3_PLAN_ARRAYS``).
+K5LB_MAX_THREADS = 384
+K5LB_MIN_BLOCKS = 2
+#: The warps one SM holds at K5Lb's registers.
+K5LB_SM_WARPS = K5LB_MIN_BLOCKS * K5LB_MAX_THREADS // 32
 _GRAD_DEFINES = {"SIONNA_K5_PLAN_ARRAYS": len(GRAD_PLAN_ARRAYS),
-                 "SIONNA_K5_THREADS": K5_THREADS, **_CN_DEFINES}
+                 "SIONNA_K5_THREADS": K5_THREADS,
+                 "SIONNA_K5B_MAX_THREADS": K5B_MAX_THREADS,
+                 "SIONNA_K5B_MAX_CLUSTER": K5B_MAX_CLUSTER,
+                 "SIONNA_K5B_REG_UNITS": K5B_REG_UNITS,
+                 "SIONNA_K5B_PLAN_ARRAYS": len(K1_PLAN_ARRAYS),
+                 "SIONNA_K5LB_MAX_THREADS": K5LB_MAX_THREADS,
+                 "SIONNA_K5LB_MIN_BLOCKS": K5LB_MIN_BLOCKS,
+                 "SIONNA_K5LB_PLAN_ARRAYS": len(K3_PLAN_ARRAYS),
+                 **_CN_DEFINES}
 _DEC = "sionna_tpu/phy/fec/ldpc/decoding.py"
 
 #: K5f, the flooding decode with its v2c tape, and K5b, its reverse.
@@ -73,8 +106,8 @@ LIFTED_BP_GRAD_KERNEL = CudaKernel(
     functions={
         "sionna_ldpc_flooding_tape": ([_P] * 5 + [_I] * 7 + [_F, _F, _I]
                                       + [_P], _I),
-        "sionna_ldpc_flooding_reverse": ([_P] * 7 + [_I] * 7
-                                         + [_F, _F, _I] + [_P], _I),
+        "sionna_ldpc_flooding_reverse": ([_P] * 5 + [_I] * 11
+                                         + [_F, _F] + [_I] * 3 + [_P], _I),
         "sionna_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     defines=_GRAD_DEFINES)
@@ -87,8 +120,8 @@ LAYERED_BP_GRAD_KERNEL = CudaKernel(
     functions={
         "sionna_ldpc_layered_tape": ([_P] * 5 + [_I] * 7 + [_F, _F, _I]
                                      + [_P], _I),
-        "sionna_ldpc_layered_reverse": ([_P] * 9 + [_I] * 7
-                                        + [_F, _F, _I] + [_P], _I),
+        "sionna_ldpc_layered_reverse": ([_P] * 8 + [_I] * 7
+                                        + [_F, _F] + [_I] * 2 + [_P], _I),
         "sionna_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     defines=_GRAD_DEFINES)
@@ -422,13 +455,166 @@ def grad_plan(lifted):
     return _pack_plan(arrays)
 
 
+class FloodingGradLayout(NamedTuple):
+    """How K5b lays out one code's message state on the card (see
+    :func:`flooding_grad_layout`)."""
+
+    threads: int          # threads per block
+    cluster: int          # blocks per codeword (a thread-block cluster)
+    smem_bytes: int       # dynamic shared memory per block
+    slab_floats: int      # floats of each of a block's two slabs
+    staged: bool          # each iteration's tape rows copied in ahead
+    reg_edges: tuple      # edges whose two slots live in registers
+    slots: tuple          # per edge: (owner block, index) or None
+    reg_units_per_thread: int
+    n_reg_rows: int
+    n_plain_rows: int
+    n_vn_cols: int
+    plan: np.ndarray      # int32 tables (K1's) the kernel copies in
+
+
+def flooding_grad_layout(lifted):
+    """The layout of K5b (``csrc/ldpc_lifted_bp_grad.cu``) for the code
+    of ``lifted``, K1's (``decoding.lifted_bp_layout``) with two slots
+    per edge lane. Plain Python, run once per decoder.
+
+    - Register edges: each base row's first edge whose column has degree
+      1; the thread of CN unit (row, lane) keeps that lane's two slots in
+      registers and takes the column's VN reverse itself.
+    - Every other edge has two f32 slots per lane in shared memory, in
+      two slabs: c2v, then dL/dc2v written over it; and dL/dv2c, carried
+      from iteration t + 1 to t. When they do not fit one block
+      (``SMEM_PER_BLOCK``, with the plan), the codeword takes a cluster of
+      2-8 blocks and the shared edges are split into contiguous groups of
+      edge ids, one group per block.
+    - Cluster: the fewest blocks whose shared memory holds the slabs and
+      whose threads hold the register edges' lanes in at most
+      ``K5B_REG_UNITS`` units each.
+    - Threads: enough for one CN or VN unit each, up to
+      ``K5B_MAX_THREADS`` per block.
+    - Staged: in one block with room for two more [E, Z] f32 buffers
+      (the link's code), each iteration's tape rows are copied into
+      shared memory during the iteration before; else the kernel reads
+      them from the tape.
+    - The plan is K1's (``K1_PLAN_ARRAYS``), its slot ids indexing both
+      slabs; edges are numbered row by row, so a row position is the
+      edge's index in the tape.
+
+    Raises ValueError for a code that no layout takes (a row degree
+    outside ``CN_ROW_DEGREES``, a mask that is not one cyclic range, no
+    cluster of up to ``K5B_MAX_CLUSTER`` blocks that holds the state)."""
+    z, n_e = lifted._z, len(lifted._edges)
+    t = _flooding_tables(lifted, "K5b")
+    if [e for r in t.rows for e in r] != list(range(n_e)):
+        raise ValueError("K5b takes edges numbered row by row")
+    units = max(len(t.rows), len(t.vn_cols)) * z
+    for cluster in range(1, K5B_MAX_CLUSTER + 1):
+        per_block = -(-len(t.shared) // cluster)
+        smem = (2 * per_block * z + t.plan_len) * 4
+        if smem > SMEM_PER_BLOCK:
+            continue
+        threads = min(K5B_MAX_THREADS, -(-units // (cluster * 32)) * 32)
+        per_thread = -(-len(t.reg_rows) * z // (cluster * threads))
+        if per_thread <= K5B_REG_UNITS:
+            break
+    else:
+        raise ValueError(
+            f"no K5b layout takes this code: {len(t.shared)} shared edges "
+            f"and {len(t.reg_rows)} register edges of {z} lanes need more "
+            f"than {K5B_MAX_CLUSTER} blocks of {K5B_MAX_THREADS} threads")
+    staged = cluster == 1 and smem + 2 * n_e * z * 4 <= SMEM_PER_BLOCK
+    slots, per_block = _flooding_slots(t, n_e, cluster)
+    return FloodingGradLayout(
+        threads=threads, cluster=cluster,
+        smem_bytes=smem + (2 * n_e * z * 4 if staged else 0),
+        slab_floats=per_block * z, staged=staged, reg_edges=t.reg_edges,
+        slots=slots, reg_units_per_thread=per_thread,
+        n_reg_rows=len(t.reg_rows), n_plain_rows=len(t.plain_rows),
+        n_vn_cols=len(t.vn_cols), plan=_flooding_plan(lifted, t, slots))
+
+
+class LayeredGradLayout(NamedTuple):
+    """How K5Lb lays out one code's state on the card (see
+    :func:`layered_grad_layout`)."""
+
+    threads: int          # threads per block (one per codeword): m per lane
+    smem_bytes: int       # dynamic shared memory per block
+    gc_on_chip: bool      # dL/dc2v in shared memory (else device memory)
+    steps: tuple          # row steps: (first row, end row), rows in order
+    plan: np.ndarray      # int32 tables (K3's) the kernel copies in
+
+
+def _layered_blocks_per_sm(smem, threads):
+    """Blocks of K5Lb that one SM holds, by their shared memory (and the
+    1 KB the card reserves per block) and by the warps its registers
+    allow (``K5LB_SM_WARPS``)."""
+    return min(SMEM_PER_SM // (smem + 1024),
+               K5LB_SM_WARPS // -(-threads // 32))
+
+
+def layered_grad_layout(lifted):
+    """The layout of K5Lb (``csrc/ldpc_layered_bp_grad.cu``) for the code
+    of ``lifted``, K3's (``decoding.layered_bp_layout``) with the
+    gradient's state, one block per codeword. Plain Python, run once per
+    decoder.
+
+    - Row steps: consecutive rows that share no column run as one step
+      (``decoding._row_steps``), in order in the replay of an iteration
+      and in reverse in its backward walk.
+    - Threads: m per lane, each on one lane throughout, m the most rows
+      of a step (at most ``K5LB_MAX_THREADS`` threads a block).
+    - Shared memory: the plan (K3's, ``K3_PLAN_ARRAYS``), the replayed
+      posterior and dL/dpost (f32, Z lanes of each column), and dL/dc2v
+      (f32, per edge and lane) where it fits (``SMEM_PER_BLOCK``) and
+      keeps as many blocks resident on an SM as device memory does. The
+      walk along a codeword's rows is a chain of dependent steps, each a
+      few hundred operations per lane on one thread, so the lanes in
+      flight set the speed: at the link and at n=12288 dL/dc2v goes to
+      device memory (6 blocks an SM at the link, 2 at n=12288), which
+      measured fastest (``PERF.md``, Findings). v2c is always in device
+      memory ([B, E, Z]).
+    - Edges are numbered row by row, so an edge's row position is its
+      index in the c2v tape.
+
+    Raises ValueError for a code that no layout takes (a row degree
+    outside ``CN_ROW_DEGREES``, a mask that is not one cyclic range, more
+    lanes than ``K5LB_MAX_THREADS``, a posterior and dL/dpost too large
+    for one block)."""
+    z, n_cols, n_e = lifted._z, lifted._n_col_blocks, len(lifted._edges)
+    tables = _layered_bp_plan(lifted, "K5Lb")
+    if list(tables.slots) != list(range(n_e)):
+        raise ValueError("K5Lb takes edges numbered row by row")
+    smem = (tables.plan.size + 2 * n_cols * z) * 4
+    if z > K5LB_MAX_THREADS or smem > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"no K5Lb layout takes this code: {n_cols} columns of {z} "
+            f"lanes need {smem} B of shared memory and {z} threads a block")
+    per_lane = max(1, min(max(b - a for a, b in tables.steps),
+                          K5LB_MAX_THREADS // z))
+    threads = per_lane * z
+    with_gc = smem + n_e * z * 4
+    gc_on_chip = with_gc <= SMEM_PER_BLOCK and \
+        _layered_blocks_per_sm(with_gc, threads) >= \
+        _layered_blocks_per_sm(smem, threads)
+    return LayeredGradLayout(
+        threads=threads, smem_bytes=with_gc if gc_on_chip else smem,
+        gc_on_chip=gc_on_chip, steps=tables.steps, plan=tables.plan)
+
+
+def _cached(lifted, key, make):
+    """``make()``, kept on ``lifted`` under ``key``: the K5 kernels'
+    layouts and their plans on each device."""
+    cache = lifted._grad_plans
+    if key not in cache:
+        cache[key] = make()
+    return cache[key]
+
+
 def _plan_on(lifted, device):
     """:func:`grad_plan` as an int32 tensor on ``device`` (cached)."""
-    plans = lifted._grad_plans
     device = torch.device(device)
-    if device not in plans:
-        plans[device] = torch.as_tensor(grad_plan(lifted), device=device)
-    return plans[device]
+    return _cached(lifted, ("k5", device), lambda: torch.as_tensor(
+        grad_plan(lifted), device=device))
 
 
 def _padded(lifted, x):
@@ -437,22 +623,35 @@ def _padded(lifted, x):
     return F.pad(x.detach(), (0, pad)).contiguous()
 
 
+def _call(kern, fn_name, lifted, device, args, variant):
+    """Calls the C entry point ``fn_name`` of ``kern`` with ``args`` and
+    the current stream of ``device``, raises on its error and counts the
+    launch."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(kern.library(), fn_name)(*args, stream)
+    kern.check(err)
+    kern.count(variant + ("+minsum" if lifted._cn_mode == "minsum" else ""))
+
+
+def _cn_args(lifted):
+    """The check node's constants: clip, offset, mode (0 boxplus, 1
+    min-sum)."""
+    return (lifted._llr_max, lifted._offset,
+            0 if lifted._cn_mode == "boxplus" else 1)
+
+
 def _launch(kern, fn_name, lifted, llr_int, num_iter, pointers, variant):
-    """Calls the C entry point ``fn_name`` of ``kern`` with ``pointers``
-    (tensors), the code's sizes and the check node's constants on the
-    current stream, raises on its error and counts the launch."""
+    """A tape kernel's launch: ``fn_name`` of ``kern`` with ``pointers``
+    (tensors), :func:`grad_plan`, the code's sizes and the check node's
+    constants on the current stream; raises on its error and counts it."""
     plan = _plan_on(lifted, llr_int.device)
     args = [t.data_ptr() for t in pointers[:1]] + [plan.data_ptr()] + \
         [t.data_ptr() for t in pointers[1:]]
-    with torch.cuda.device(llr_int.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(kern.library(), fn_name)(
-            *args, llr_int.shape[0], lifted._n_row_blocks,
-            lifted._n_col_blocks, len(lifted._edges), lifted._z,
-            plan.numel(), num_iter, lifted._llr_max, lifted._offset,
-            0 if lifted._cn_mode == "boxplus" else 1, stream)
-    kern.check(err)
-    kern.count(variant + ("+minsum" if lifted._cn_mode == "minsum" else ""))
+    _call(kern, fn_name, lifted, llr_int.device, (
+        *args, llr_int.shape[0], lifted._n_row_blocks,
+        lifted._n_col_blocks, len(lifted._edges), lifted._z, plan.numel(),
+        num_iter, *_cn_args(lifted)), variant)
 
 
 def flooding_tape_cuda(lifted, llr_int, num_iter):
@@ -475,8 +674,9 @@ def flooding_tape_cuda(lifted, llr_int, num_iter):
 
 def flooding_reverse_cuda(lifted, llr_int, tape, g_marg):
     """K5b: :func:`flooding_reverse` as one launch of
-    ``csrc/ldpc_lifted_bp_grad.cu`` on the current stream, counted as
-    "backward"."""
+    ``csrc/ldpc_lifted_bp_grad.cu`` on the current stream, in the layout
+    of :func:`flooding_grad_layout` (the message state in shared memory,
+    so nothing but the output is allocated), counted as "backward"."""
     kern = LIFTED_BP_GRAD_KERNEL
     num_iter = tape.shape[0]
     _check_llrs(kern, lifted, llr_int, num_iter, None, "log1p")
@@ -488,10 +688,18 @@ def flooding_reverse_cuda(lifted, llr_int, tape, g_marg):
     g_p = _padded(lifted, g_marg.to(llr_p.dtype))
     g_llr = torch.empty_like(llr_p)
     if batch:
-        scratch = llr_p.new_empty((2, batch, n_e, z) if num_iter else (2, 0))
-        _launch(kern, "sionna_ldpc_flooding_reverse", lifted, llr_int,
-                num_iter, (llr_p, g_p, tape, g_llr, scratch[0], scratch[1]),
-                "backward")
+        dev = llr_int.device
+        layout = _cached(lifted, "k5b", lambda: flooding_grad_layout(lifted))
+        plan = _cached(lifted, ("k5b", dev),
+                       lambda: torch.as_tensor(layout.plan, device=dev))
+        _call(kern, "sionna_ldpc_flooding_reverse", lifted, dev, (
+            llr_p.data_ptr(), plan.data_ptr(), g_p.data_ptr(),
+            tape.data_ptr(), g_llr.data_ptr(), batch, lifted._n_col_blocks,
+            n_e, z, layout.n_reg_rows, layout.n_plain_rows,
+            layout.n_vn_cols, layout.slab_floats, int(layout.staged),
+            plan.numel(), num_iter, *_cn_args(lifted), layout.threads,
+            layout.cluster),
+            "backward")
     return g_llr[:, :lifted._num_vns]
 
 
@@ -514,7 +722,10 @@ def layered_tape_cuda(lifted, llr_int, num_iter):
 
 def layered_reverse_cuda(lifted, llr_int, tape_m, tape_c, g_marg):
     """K5Lb: :func:`layered_reverse` as one launch of
-    ``csrc/ldpc_layered_bp_grad.cu`` on the current stream, counted as
+    ``csrc/ldpc_layered_bp_grad.cu`` on the current stream, in the layout
+    of :func:`layered_grad_layout` (the posterior and dL/dpost in shared
+    memory; v2c, and dL/dc2v where the layout keeps it in device memory,
+    in [B, E, Z] buffers allocated here and not cleared), counted as
     "backward"."""
     kern = LAYERED_BP_GRAD_KERNEL
     num_iter = tape_m.shape[0]
@@ -530,11 +741,19 @@ def layered_reverse_cuda(lifted, llr_int, tape_m, tape_c, g_marg):
     g_p = _padded(lifted, g_marg.to(llr_p.dtype))
     g_llr = torch.empty_like(llr_p)
     if batch:
-        post = llr_p.new_empty((batch, n_cols, z))
-        scratch = llr_p.new_empty((2, batch, n_e, z))
-        _launch(kern, "sionna_ldpc_layered_reverse", lifted, llr_int,
-                num_iter, (llr_p, g_p, tape_m, tape_c, g_llr, post,
-                           scratch[0], scratch[1]), "backward")
+        dev = llr_int.device
+        layout = _cached(lifted, "k5lb", lambda: layered_grad_layout(lifted))
+        plan = _cached(lifted, ("k5lb", dev),
+                       lambda: torch.as_tensor(layout.plan, device=dev))
+        shape = (batch, n_e, z) if num_iter else (1,)
+        v2c = llr_p.new_empty(shape)
+        gc = None if layout.gc_on_chip else llr_p.new_empty(shape)
+        _call(kern, "sionna_ldpc_layered_reverse", lifted, dev, (
+            llr_p.data_ptr(), plan.data_ptr(), g_p.data_ptr(),
+            tape_m.data_ptr(), tape_c.data_ptr(), g_llr.data_ptr(),
+            v2c.data_ptr(), None if gc is None else gc.data_ptr(), batch,
+            len(layout.steps), n_cols, n_e, z, plan.numel(), num_iter,
+            *_cn_args(lifted), layout.threads), "backward")
     return g_llr[:, :lifted._num_vns]
 
 

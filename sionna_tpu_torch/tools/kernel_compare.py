@@ -4,25 +4,33 @@ checkout (e.g. the parent commit's), in turns on one card.
 K3 (layered-10, boxplus): f32 and bf16 c2v storage at the flagship code
 n=12288 at batch 2048 and at BG1 with Z=384, n=16896 and n=25344 (the
 largest 5G code) at batch 2048, and f32 at the coded-AWGN code n=2048 at
-batch 2000. K1 (BP-20, f32,
-boxplus) at the flagship shape. The other checkout's package is imported
-beside this one (as ``sionna_tpu_torch_other``; the package's imports
-are relative) and runs through its own ``layered_bp_cuda`` and
-``lifted_bp_cuda``, which build its kernels from its own sources into its
-own ``build/``. For each case it checks that both kernels give this
-tree's plain decode's marginals exactly, then times them in the order
-other, this, this, other (CUDA events, one warm-up, ``--reps`` calls
-each); a code the other checkout's layout refuses is timed on this
+batch 2000. K1 (BP-20, f32, boxplus) at the flagship shape. The gradient's
+backward kernels K5b (BP-20) and K5Lb (layered-10), boxplus, at the
+coded-AWGN link's n=2048 x 2000 and the flagship's n=12288 x 2048. The
+other checkout's package is imported beside this one (as
+``sionna_tpu_torch_other``; the package's imports are relative) and runs
+through its own ``layered_bp_cuda``, ``lifted_bp_cuda``,
+``flooding_reverse_cuda`` and ``layered_reverse_cuda``, which build its
+kernels from its own sources into its own ``build/``.
+
+For each K1/K3 case it checks that both kernels give this tree's plain
+decode's marginals exactly; for each K5b/K5Lb case, on one tape and one
+dL/dmarg (this tree's K5f/K5Lf), that both give this tree's plain
+reverse's gradient within ``GRAD_REL_TOL`` of its largest value, and it
+prints their largest difference from each other. Then it times them in
+the order other, this, this, other (CUDA events, one warm-up, ``--reps``
+calls each); a code the other checkout's layout refuses is timed on this
 tree's kernel alone. Prints one JSON line per case (with this tree's
 layout of the kernel). Then it times this tree's K3 f32 at the
-coded-AWGN shape with 1-5 threads per lane, in the order 1..5, 5..1
-(the layout's choice at that code is one), and prints the card.
+coded-AWGN shape with 1-5 threads per lane, in the order 1..5, 5..1 (the
+layout's choice at that code is one), and prints the card.
 
 Run on the card from the repository root, with the other checkout's
 package and LDPC tables unpacked under ``build/`` (gitignored), e.g.
 ``git archive <commit> sionna_tpu_torch sionna_tpu/phy/fec/ldpc/codes |
 tar -x -C build/parent``:
-``python -m sionna_tpu_torch.tools.kernel_compare --parent build/parent``.
+``python -m sionna_tpu_torch.tools.kernel_compare --parent build/parent``
+(``--kernels K5b K5Lb`` for the gradient kernels alone).
 """
 
 import argparse
@@ -37,6 +45,7 @@ from pathlib import Path
 import torch
 
 from ..phy.fec.ldpc import LDPC5GDecoder, LDPC5GEncoder
+from ..phy.fec.ldpc import lifted_grad as lg
 from ..phy.fec.ldpc.decoding import (LAYERED_BP_KERNEL, LIFTED_BP_KERNEL,
                                      layered_bp_cuda, lifted_bp_cuda)
 from ..phy.utils import ebnodb2no
@@ -55,8 +64,16 @@ CASES = [("K3", None, "n=12288 x 2048"),
          ("K3", torch.bfloat16, "n=16896 x 2048"),
          ("K3", None, "n=25344 x 2048"),
          ("K3", torch.bfloat16, "n=25344 x 2048"),
-         ("K1", None, "n=12288 x 2048")]
+         ("K1", None, "n=12288 x 2048"),
+         ("K5b", None, "n=2048 x 2000"),
+         ("K5Lb", None, "n=2048 x 2000"),
+         ("K5b", None, "n=12288 x 2048"),
+         ("K5Lb", None, "n=12288 x 2048")]
 OTHER = "sionna_tpu_torch_other"
+# a backward kernel against the plain reverse on the same tape: the
+# largest |error| over the largest |gradient| (f32 sums of the same
+# terms in other orders); chip_smoke.py's phase 36 holds them to it too
+GRAD_REL_TOL = 1e-6
 
 
 def other_package(root):
@@ -68,6 +85,7 @@ def other_package(root):
     pkg = importlib.util.module_from_spec(spec)
     sys.modules[OTHER] = pkg
     spec.loader.exec_module(pkg)
+    importlib.import_module(f"{OTHER}.phy.fec.ldpc.lifted_grad")
     return importlib.import_module(f"{OTHER}.phy.fec.ldpc")
 
 
@@ -92,6 +110,31 @@ def k3_thread_sweep(lift, x, reps):
     return times
 
 
+def check_grads(grads, want, what):
+    """Raises unless each of ``grads`` ({name: gradient}) is finite and
+    within GRAD_REL_TOL of the largest |gradient| of the plain reverse's
+    ``want``; returns {name: max |grad - want| / max |want|}."""
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    out = {}
+    for name, got in grads.items():
+        err = float((got - want).abs().max())
+        if not (bool(torch.isfinite(got).all()) and
+                err <= GRAD_REL_TOL * scale):
+            raise AssertionError(f"{what}: {name} off the plain reverse by "
+                                 f"{err} of {scale}")
+        out[name] = err / scale
+    return out
+
+
+def in_turns(reps, first, second):
+    """([ms, ms], [ms, ms]) of ``first`` and ``second``, timed in the
+    order first, second, second, first."""
+    a1, b1 = cuda_ms(first, reps), cuda_ms(second, reps)
+    b2, a2 = cuda_ms(second, reps), cuda_ms(first, reps)
+    return [a1, a2], [b1, b2]
+
+
 def identical(got, want, what):
     torch.cuda.synchronize()
     if not (bool(torch.isfinite(got).all()) and torch.equal(got, want)):
@@ -109,23 +152,80 @@ def llrs(dec, batch, ebno_db, gen):
     return dec.recover_llrs(-4 * y / no)
 
 
+def grad_case(kernel, shape, lift, other_lift, other_lg, x, gen, reps):
+    """One K5b/K5Lb case: both checkouts' backward kernel on this tree's
+    tape against the plain reverse and each other, then timed in turns.
+    Returns the case's JSON record."""
+    layered = kernel == "K5Lb"
+    if layered:
+        tape_k, back, plain = (lg.layered_tape_cuda, lg.layered_reverse_cuda,
+                               lg.layered_reverse)
+    else:
+        tape_k, back, plain = (lg.flooding_tape_cuda,
+                               lg.flooding_reverse_cuda, lg.flooding_reverse)
+    # this tree's tape at BP-20 or layered-10, a standard normal dL/dmarg
+    marg, *tapes = tape_k(lift, x, 10 if layered else 20)
+    g = torch.randn(marg.shape, generator=gen, device="cuda")
+    del marg
+    other_back = getattr(other_lg, back.__name__)
+    out = {}
+
+    def kept(name, fn):
+        def call():
+            out.pop(name, None)
+            out[name] = fn()
+        return call
+    new = kept("this", lambda: back(lift, x, *tapes, g))
+    old = kept("other", lambda: other_back(other_lift, x, *tapes, g))
+    new()
+    old()
+    want = plain(lift, x, *tapes, g)
+    rel = check_grads(out, want, f"{kernel} {shape}")
+    del want
+    between = float((out["this"] - out["other"]).abs().max())
+    (o1, o2), (n1, n2) = in_turns(reps, old, new)
+    layout = lift._grad_plans["k5lb" if layered else "k5b"]
+    info = ({"gc_on_chip": layout.gc_on_chip} if layered else
+            {"cluster": layout.cluster, "staged": layout.staged})
+    out.clear()
+    return {"kernel": kernel, "shape": f"{shape}, "
+            f"{'layered-10' if layered else 'BP-20'} boxplus",
+            "rel_err_vs_plain": rel, "max_abs_this_vs_other": between,
+            "other_ms": [o1, o2], "this_ms": [n1, n2],
+            "threads": layout.threads, "smem_bytes": layout.smem_bytes,
+            **info}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", required=True,
                         help="root of the other checkout")
     parser.add_argument("--reps", type=int, default=10)
+    parser.add_argument("--kernels", nargs="+", default=["K1", "K3", "K5b",
+                                                         "K5Lb"],
+                        help="the kernels whose cases run")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_compare needs a CUDA device")
     other = other_package(args.parent)
-    with ThreadPoolExecutor(4) as pool:
-        list(pool.map(lambda k: k.library(), (
-            other.decoding.LIFTED_BP_KERNEL, other.decoding.LAYERED_BP_KERNEL,
-            LIFTED_BP_KERNEL, LAYERED_BP_KERNEL)))
+    other_lg = other.lifted_grad
+    libs = []
+    if {"K1", "K3"} & set(args.kernels):
+        libs += [other.decoding.LIFTED_BP_KERNEL,
+                 other.decoding.LAYERED_BP_KERNEL, LIFTED_BP_KERNEL,
+                 LAYERED_BP_KERNEL]
+    if {"K5b", "K5Lb"} & set(args.kernels):
+        libs += [other_lg.LIFTED_BP_GRAD_KERNEL,
+                 other_lg.LAYERED_BP_GRAD_KERNEL, lg.LIFTED_BP_GRAD_KERNEL,
+                 lg.LAYERED_BP_GRAD_KERNEL]
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda k: k.library(), libs))
     gen = torch.Generator(device="cuda").manual_seed(4)
     inputs = {}
     with torch.no_grad():
         for kernel, storage, shape in CASES:
+            if kernel not in args.kernels:
+                continue
             if shape not in inputs:
                 k, n, nbps, batch, ebno_db = SHAPES[shape]
                 enc = LDPC5GEncoder(k, n, num_bits_per_symbol=nbps)
@@ -137,6 +237,11 @@ def main():
                 inputs[shape] = (dec.lifted, other_lift,
                                  llrs(dec, batch, ebno_db, gen))
             lift, other_lift, x = inputs[shape]
+            if kernel in ("K5b", "K5Lb"):
+                print(json.dumps(grad_case(kernel, shape, lift, other_lift,
+                                           other_lg, x, gen, args.reps)),
+                      flush=True)
+                continue
             if kernel == "K3":
                 old, new = (
                     lambda: other.decoding.layered_bp_cuda(other_lift, x, 10,
@@ -168,12 +273,12 @@ def main():
                               "threads": layout.threads,
                               "cluster": layout.cluster, **info}),
                   flush=True)
-        lift, _, x = inputs["n=2048 x 2000"]
-        print(json.dumps({"kernel": "K3", "variant": "f32",
-                          "shape": "n=2048 x 2000",
-                          "ms_by_threads": k3_thread_sweep(lift, x,
-                                                           args.reps)}),
-              flush=True)
+        if "K3" in args.kernels:
+            lift, _, x = inputs["n=2048 x 2000"]
+            print(json.dumps({"kernel": "K3", "variant": "f32",
+                              "shape": "n=2048 x 2000",
+                              "ms_by_threads": k3_thread_sweep(
+                                  lift, x, args.reps)}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
