@@ -287,10 +287,11 @@ render traces its rays through phase 30's intersection code.
 36. the gradient kernels of the lifted decoder (a fresh process,
     ``grad_phases``): K5f and K5b (``csrc/ldpc_lifted_bp_grad.cu``), K5Lf
     and K5Lb (``csrc/ldpc_layered_bp_grad.cu``), built in phase 2 beside
-    K1 and K3. For the codes of phases 3-4 (the largest 5G code too, whose
-    backward layouts differ) and the three check-node rules: K5f's
-    marginals identical to K1's (K5Lf's to K3's) at 0, 1, 5
-    and 20 iterations (10 layered); at 0, 1 and 5 its tapes identical to
+    K1 and K3, whose code and layouts the tape kernels K5f and K5Lf run.
+    For the codes of phases 3-4 (n=16896 and n=25344 too: the cluster
+    layouts of K1, K3 and the backward kernels) and the three check-node
+    rules: K5f's marginals identical to K1's (K5Lf's to K3's) at 0, 1,
+    5 and 20 iterations (10 layered); at 0, 1 and 5 its tapes identical to
     the plain tape forward's (``lifted_grad.flooding_tape_forward``,
     ``layered_tape_forward``) and K5b (K5Lb) on that tape against the
     plain reverse on the card, the largest error over the largest
@@ -301,7 +302,7 @@ render traces its rays through phase 30's intersection code.
     warm-up excluded) of the tape kernel, the backward kernel and K1/K3
     alone, of the plain tape forward and reverse, each kernel's bound,
     the peak memory of a forward and backward and of the backward alone,
-    the backward kernels' layouts;
+    the tape and backward kernels' layouts;
 37. trains a 16-QAM constellation through the quick-start link at full
     width (``TRAIN``: ``LDPC5GEncoder(1024, 2048)``, ``Mapper`` with
     ``points=``, ``AWGN``, ``Demapper("app", points=)``,
@@ -4919,15 +4920,23 @@ def grad_calls(lift, layered):
 
 
 def grad_layout_text(lift, layered):
-    """The backward kernel's layout for ``lift``, in words."""
+    """The tape kernel's layout (K1's or K3's f32) and the backward
+    kernel's for ``lift``, in words."""
     if layered:
+        tape = lift.k3_layout(None)
         lay = lift._grad_plans["k5lb"]
-        return (f"K5Lb layout: one block of {lay.threads} threads, "
-                f"{lay.smem_bytes} B, v2c in device memory, dL/dc2v in "
+        return (f"K5Lf layout (K3's f32): {tape.cluster} block(s) of "
+                f"{tape.threads} threads, {tape.lanes} lanes each, "
+                f"{tape.smem_bytes} B; K5Lb layout: one block of "
+                f"{lay.threads} threads, {lay.smem_bytes} B, v2c in device "
+                f"memory, dL/dc2v in "
                 f"{'shared' if lay.gc_on_chip else 'device'} memory")
+    tape = lift.k1_layout()
     lay = lift._grad_plans["k5b"]
-    return (f"K5b layout: {lay.cluster} block(s), {lay.threads} threads, "
-            f"{lay.smem_bytes} B, tape rows "
+    return (f"K5f layout (K1's): {tape.cluster} block(s) of {tape.threads} "
+            f"threads, {tape.smem_bytes} B, {len(tape.reg_edges)} register "
+            f"edges; K5b layout: {lay.cluster} block(s), {lay.threads} "
+            f"threads, {lay.smem_bytes} B, tape rows "
             f"{'staged by cp.async' if lay.staged else 'read from the tape'}")
 
 
@@ -5282,15 +5291,16 @@ def main():
     print(f"[2] built "
           f"{', '.join(k.source.name for k in KERNELS + GRAD_KERNELS)} and "
           f"the SASS probes in {time.perf_counter() - t0:.2f} s")
-    for kern in GRAD_KERNELS:
-        for line in grad_ptxas_report(kern):
-            print(f"    ptxas {line}")
     for kern in KERNELS:
         for line in ptxas_report(kern):
             print(f"    ptxas {line}")
             # K3 keeps every per-edge value in registers or shared memory
             if kern is LAYERED_BP_KERNEL and local_memory_bytes(line):
                 raise AssertionError(f"K3 uses local memory: {line}")
+    # the tape kernels (K1's and K3's code with the tape stores) beside them
+    for kern in GRAD_KERNELS:
+        for line in grad_ptxas_report(kern):
+            print(f"    ptxas {line}")
     print(f"    FP32 (instructions, operations) on the executed path of "
           f"{function_ops}; per boxplus edge-lane update {ops_per_update}; "
           f"per min-sum edge-lane update {sass_ops.MINSUM_OPS} (counted "

@@ -1,6 +1,7 @@
 // Check-node update and message storage of the lifted 5G LDPC decoders,
 // shared by the flooding kernel (ldpc_lifted_bp.cu) and the layered
-// kernel (ldpc_layered_bp.cu).
+// kernel (ldpc_layered_bp.cu), their gradients' kernels, and the launch
+// of a decoder kernel per codeword (launch_per_codeword).
 //
 // It computes, for one lane of one base row, what `_lifted_cn_phase` in
 // sionna_tpu_torch/phy/fec/ldpc/decoding.py computes, operation by
@@ -160,6 +161,35 @@ __device__ __forceinline__ void cn_extrinsic(const float (&val)[D], int mode,
       emit(k, ext);
     }
   }
+}
+
+// Launches `kernel(args...)` on `stream` with `threads` threads a block and
+// one block per codeword of the batch, or (multi) a cluster of `cluster`
+// blocks per codeword, after opting in to `smem` bytes of dynamic shared
+// memory; returns the CUDA error code. The decoders' launches (K1, K3 and
+// their tape variants K5f, K5Lf) go through it.
+template <class... Params, class... Args>
+cudaError_t launch_per_codeword(void (*kernel)(Params...), bool multi,
+                                int batch, int cluster, int threads,
+                                size_t smem, cudaStream_t stream,
+                                Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(batch) * cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = multi ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 }  // namespace sionna_ldpc

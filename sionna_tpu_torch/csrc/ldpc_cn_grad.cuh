@@ -1,11 +1,11 @@
-// Check-node forward and reverse of the lifted 5G LDPC decoders' gradient
-// kernels (ldpc_lifted_bp_grad.cu: K5f, K5b; ldpc_layered_bp_grad.cu:
-// K5Lf, K5Lb).
+// Check-node forward and reverse of the lifted 5G LDPC decoders' backward
+// kernels (ldpc_lifted_bp_grad.cu: K5b; ldpc_layered_bp_grad.cu: K5Lb;
+// their tape kernels K5f and K5Lf run K1's and K3's own code).
 //
 // cn_forward computes one check-node unit (one lane of one base row) as
 // the forward kernels K1 and K3 do, from ldpc_cn.cuh's cn_extrinsic and in
-// the same order of operations, so the tape kernels' marginals are
-// bit-identical to K1's and K3's (and to the plain version's).
+// the same order of operations, so the backward kernels recompute the
+// c2v that the decode computed, bit for bit.
 //
 // cn_adjoint is the reverse of that unit: the gradient with respect to the
 // unit's v2c inputs from the gradient of its c2v outputs, what
@@ -30,47 +30,7 @@
 
 #include "ldpc_cn.cuh"
 
-#ifndef SIONNA_K5_PLAN_ARRAYS
-#error "build with the defines of the K5 kernels (lifted_grad.py)"
-#endif
-
 namespace sionna_ldpc {
-
-// Header of the K5 plan: offsets (in ints) of its arrays, in the order of
-// GRAD_PLAN_ARRAYS (sionna_tpu_torch/phy/fec/ldpc/lifted_grad.py).
-enum { kRowPtr, kEdgeCol, kEdgeShift, kEdgeRange, kColPtr, kColEdge, kHeader };
-static_assert(kHeader == SIONNA_K5_PLAN_ARRAYS,
-              "the plan's arrays differ from GRAD_PLAN_ARRAYS");
-// dynamic shared memory for the plan without the opt-in attribute
-constexpr int kMaxPlanInts = 48 * 1024 / 4;
-
-struct Plan {
-  const int* row_ptr;   // [rows + 1] into the edges, numbered row by row
-  const int* col;       // [E] each edge's column
-  const int* shift;     // [E] its cyclic shift
-  const int* range;     // [E] its active lanes (lane_on)
-  const int* col_ptr;   // [cols + 1] into col_edge
-  const int* col_edge;  // the edges of each column
-};
-
-// Copies the plan into shared memory and returns its arrays there.
-__device__ __forceinline__ Plan load_plan(const int* __restrict__ plan,
-                                          int plan_len) {
-  extern __shared__ int tab[];
-  for (int u = threadIdx.x; u < plan_len; u += blockDim.x) tab[u] = plan[u];
-  __syncthreads();
-  return Plan{tab + tab[kRowPtr],    tab + tab[kEdgeCol],
-              tab + tab[kEdgeShift], tab + tab[kEdgeRange],
-              tab + tab[kColPtr],    tab + tab[kColEdge]};
-}
-
-// Whether a launch's sizes are outside what the K5 kernels take.
-inline bool bad_args(int batch, int n_rows, int n_cols, int n_edges, int z,
-                     int plan_len, int num_iter, int mode) {
-  return batch <= 0 || n_rows <= 0 || n_cols <= 0 || n_edges <= 0 || z <= 0 ||
-         z > 0xffff || num_iter < 0 || (mode != 0 && mode != 1) ||
-         plan_len < kHeader || plan_len > kMaxPlanInts;
-}
 
 // Calls f(std::integral_constant<int, D>()) for the runtime row degree d
 // of SIONNA_CN_DEGREES (ldpc_cn.cuh); nothing for another degree (the host
@@ -87,14 +47,6 @@ __device__ __forceinline__ void with_degree(int d, F&& f) {
     default:
       break;
   }
-}
-
-// Lane l of an edge is active when (l - lo) mod z < len; range packs
-// lo | len << 16.
-__device__ __forceinline__ bool lane_on(int range, int z, int l) {
-  int d = l - (range & 0xffff);
-  if (d < 0) d += z;
-  return d < (range >> 16);
 }
 
 // JAX's derivatives as factors: d minimum(x, y) / dx; d clip(x, -c, c) /

@@ -12,19 +12,39 @@
 //   v2c  = post[c][(i + s) mod Z] - c2v_old
 //   c2v  = check-node update of the row's v2c (clipped inside)
 //   post[c][(i + s) mod Z] += c2v - c2v_old
-// - K5Lf runs the rows in order, as K3 (ldpc_layered_bp.cu) does, with the
-//   check node of ldpc_cn_grad.cuh's cn_forward (K3's arithmetic, from
-//   ldpc_cn.cuh) and the same two lines around it, so its marginals are
-//   bit-identical to K3's. The posterior lives in the output; the tape
-//   holds each iteration's starting posterior ([T, C, B, Z]) and c2v
-//   ([T, E, B, Z]): tape_c[t + 1] is where iteration t writes its new c2v.
-//   One block per codeword, a thread per lane, a barrier after each row.
+// - K5Lf is K3 (ldpc_layered_bp.cu) with its tapes: it runs K3's code,
+//   `decode` of ldpc_layered_bp.cuh, in K3's f32 layout and plan
+//   (`layered_bp_layout`), so its marginals are K3's bit for bit, and
+//   stores each iteration's starting posterior (tape_m [T, C, B, Z]) and
+//   c2v (tape_c [T, E, B, Z]).
 // - K5Lb walks the iterations backwards. In iteration t it replays the
 //   row sweep from the tape into the posterior, keeping every edge's v2c;
 //   then walks the rows backwards: with gP = dL/dpost and gC = dL/dc2v,
 //   per edge gN = gC + gP[(i + s) mod Z] is dL/dc2v_new, cn_adjoint gives
 //   gV = dL/dv2c, and gP[(i + s) mod Z] += gV, gC = -gP_before - gV.
 //   After iteration 0, dL/dllr is gP (the posterior starts at the LLRs).
+//
+// What bounds K5Lf on an H100: K3's check-node arithmetic and its chain
+// of row steps (1.76 ms of operations at n = 12288 x 2048 layered-10)
+// against the tapes written once (6.04 GB there, 1.80 ms at 3.35 TB/s).
+// Its first design ran one thread per lane, one row at a time with a
+// block barrier after each, the posterior in the output in device memory,
+// and read each row's c2v_old back from the tape row it wrote an
+// iteration before. Now the state stays on chip as in K3 (the posterior
+// and every c2v slot in shared memory, row steps in phases A/B/C with m
+// threads per lane, a cluster splitting the lanes where one block is too
+// small), and the tapes are side stores that are never read back:
+// - tape_c[t]: phase A of iteration t reads each (edge, lane) item's
+//   c2v_old from its slot, whose index is the edge's row position, and
+//   stores it there (tape_c[0] gets the zeros the slots start with);
+// - tape_m[t]: when iteration t starts, each block stores its own lane
+//   run of every column from its replica of the posterior, which is whole
+//   once the last step's mbarrier wait has passed. In a cluster a block
+//   may run one step ahead and push the first step's lanes into the
+//   replica being stored, so the blocks meet at a cluster barrier after
+//   the stores: one per iteration.
+// Each tape element is stored once, by the block that owns its lane, with
+// streaming stores (write-once data, read only by K5Lb).
 //
 // What bounds K5Lb on an H100: the check-node arithmetic (a forward in the
 // replay, a forward, a division and the adjoint in the walk: 95 + 95 + 12
@@ -77,135 +97,39 @@
 #include <cuda_runtime.h>
 
 #include "ldpc_cn_grad.cuh"
+#include "ldpc_layered_bp.cuh"
 
 namespace {
 
-using sionna_ldpc::bad_args;
+namespace ly = sionna_ldpc::layered;
+using ly::edge_active;
+using ly::post_index;
 using sionna_ldpc::cn_adjoint;
 using sionna_ldpc::cn_forward;
-using sionna_ldpc::lane_on;
-using sionna_ldpc::load_plan;
-using sionna_ldpc::Plan;
 using sionna_ldpc::with_degree;
 
-// threads per block: one per lane, the largest 5G lifting size
-constexpr int kMaxLanes = 384;
-
-// The posterior lane of edge e that CN lane l of its row meets.
-__device__ __forceinline__ int vn_index(const Plan& p, int e, int l, int z) {
-  int j = l + p.shift[e];
-  if (j >= z) j -= z;
-  return p.col[e] * z + j;
-}
-
-// One row step of the sweep at lane l: v2c from post and the old c2v at
-// c_old[e * estride + l], the check node, the posterior update; the new
-// c2v to c_new (unless null).
-template <int D>
-__device__ __forceinline__ void row_step(const Plan& p, int p0, int l, int z,
-                                         float* post, const float* c_old,
-                                         float* c_new, size_t estride,
-                                         float clip, float offset, int mode) {
-  float m[D], old[D], out[D];
-  unsigned act = 0;
-#pragma unroll
-  for (int k = 0; k < D; ++k) {
-    const int e = p0 + k;
-    old[k] = c_old[e * estride + l];
-    m[k] = post[vn_index(p, e, l, z)] - old[k];
-    if (lane_on(p.range[e], z, l)) act |= 1u << k;
-  }
-  cn_forward<D>(m, act, clip, offset, mode, out);
-#pragma unroll
-  for (int k = 0; k < D; ++k) {
-    const int e = p0 + k;
-    const int i = vn_index(p, e, l, z);
-    post[i] = post[i] + (out[k] - old[k]);
-    if (c_new) c_new[e * estride + l] = out[k];
-  }
-}
-
-// One iteration's sweep over the rows, in order.
-__device__ __forceinline__ void sweep(const Plan& p, int n_rows, int z,
-                                      float* post, const float* c_old,
-                                      float* c_new, size_t estride,
-                                      float clip, float offset, int mode) {
-  for (int r = 0; r < n_rows; ++r) {
-    const int p0 = p.row_ptr[r];
-    for (int l = threadIdx.x; l < z; l += blockDim.x) {
-      with_degree(p.row_ptr[r + 1] - p0, [&](auto dc) {
-        row_step<decltype(dc)::value>(p, p0, l, z, post, c_old, c_new,
-                                      estride, clip, offset, mode);
-      });
-    }
-    __syncthreads();
-  }
-}
-
-// K5Lf. llr, out: [B, C * z]; tape_m: [T, C, B, z]; tape_c: [T, E, B, z].
-__global__ void __launch_bounds__(kMaxLanes)
+// K5Lf: K3's decode with the tapes, in K3's f32 layout. tape_m: [num_iter,
+// n_cols, batch, z]; tape_c: [num_iter, n_edges, batch, z].
+template <int kBlocks>
+__global__ void __launch_bounds__(ly::kMaxThreads, 1)
 layered_tape_kernel(const float* __restrict__ llr,
                     const int* __restrict__ plan, float* __restrict__ out,
-                    float* __restrict__ tape_m, float* __restrict__ tape_c,
-                    int batch, int n_rows, int n_cols, int n_edges, int z,
-                    int plan_len, int num_iter, float clip, float offset,
-                    int mode) {
-  const size_t b = blockIdx.x;
-  const float* llr_b = llr + b * n_cols * z;
-  float* post = out + b * n_cols * z;
-  for (int u = threadIdx.x; u < n_cols * z; u += blockDim.x) {
-    post[u] = llr_b[u];
-  }
-  if (num_iter == 0) return;
-  const Plan p = load_plan(plan, plan_len);  // a barrier after the copy
-  const size_t estride = static_cast<size_t>(batch) * z;
-  float* tm_b = tape_m + b * z;
-  float* tc_b = tape_c + b * z;
-  for (int it = 0; it < num_iter; ++it) {
-    float* c_old = tc_b + it * estride * n_edges;
-    float* c_new = it + 1 < num_iter ? c_old + estride * n_edges : nullptr;
-    for (int u = threadIdx.x; u < n_cols * z; u += blockDim.x) {
-      const int c = u / z;
-      tm_b[(it * n_cols + c) * estride + (u - c * z)] = post[u];
-    }
-    if (it == 0) {
-      for (int u = threadIdx.x; u < n_edges * z; u += blockDim.x) {
-        const int e = u / z;
-        c_old[e * estride + (u - e * z)] = 0.f;
-      }
-    }
-    __syncthreads();
-    sweep(p, n_rows, z, post, c_old, c_new, estride, clip, offset, mode);
-  }
+                    ly::Tapes tapes, int n_steps, int n_cols, int n_edges,
+                    int z, int lanes, int step_degree, int plan_len,
+                    int num_iter, float clip, float offset, int mode) {
+  ly::decode<float, kBlocks, true>(llr, plan, out, tapes, n_steps, n_cols,
+                                   n_edges, z, lanes, step_degree, plan_len,
+                                   num_iter, clip, offset, mode);
 }
 
-// K5Lb's layout limits, from lifted_grad.py (K5LB_MAX_THREADS, ...).
-#if !defined(SIONNA_K5LB_MAX_THREADS) || !defined(SIONNA_K5LB_PLAN_ARRAYS) || \
-    !defined(SIONNA_K5LB_MIN_BLOCKS)
+// K5Lb's layout limits, from lifted_grad.py (K5LB_MAX_THREADS, ...). Its
+// plan is K3's (ly::kEdge, ...): one int4 edge record per row position p,
+// which is also the edge's index in the tapes.
+#if !defined(SIONNA_K5LB_MAX_THREADS) || !defined(SIONNA_K5LB_MIN_BLOCKS)
 #error "build with the defines of LAYERED_BP_GRAD_KERNEL (lifted_grad.py)"
 #endif
 constexpr int kLbMaxThreads = SIONNA_K5LB_MAX_THREADS;
 constexpr int kLbMinBlocks = SIONNA_K5LB_MIN_BLOCKS;  // per SM
-
-// Header of K5Lb's plan (K3's): offsets (in ints, multiples of 4) of its
-// arrays, in the order of K3_PLAN_ARRAYS. The edge records, one int4 per
-// row position p (p is also the edge's index in the tapes): column * z +
-// shift, z - shift, and the cyclic active-lane range (lo, length).
-namespace k5lb {
-enum { kEdge, kStepPtr, kRowPtr, kHeader };
-static_assert(kHeader == SIONNA_K5LB_PLAN_ARRAYS,
-              "the plan's arrays differ from K3_PLAN_ARRAYS");
-}  // namespace k5lb
-
-// Posterior index of lane i's item on an edge (record rec: column * z +
-// shift, z - shift, lo, length), column * z + (i + shift) mod z, and
-// whether lane i of the edge is active ((i - lo) mod z < length).
-__device__ __forceinline__ int post_index(int4 rec, int i, int z) {
-  return rec.x + i - (i >= rec.y ? z : 0);
-}
-__device__ __forceinline__ bool edge_active(int4 rec, int i, int z) {
-  return i - rec.z + (i < rec.z ? z : 0) < rec.w;
-}
 
 // K5Lb. llr (unused: the tape holds the posterior), g_marg, g_llr: [B, C *
 // z] (padded: 0 beyond the code's VNs); tape_m: [T, C, B, z]; tape_c: [T, E,
@@ -240,9 +164,9 @@ layered_reverse_kernel(const float* __restrict__ llr,
   for (int u = t; u < plan_len; u += nt) tab[u] = plan[u];
   for (int u = t; u < n_cols * z; u += nt) gp[u] = gm_b[u];
   __syncthreads();
-  const int4* edge = reinterpret_cast<const int4*>(tab + tab[k5lb::kEdge]);
-  const int* step_ptr = tab + tab[k5lb::kStepPtr];
-  const int* row_ptr = tab + tab[k5lb::kRowPtr];
+  const int4* edge = reinterpret_cast<const int4*>(tab + tab[ly::kEdge]);
+  const int* step_ptr = tab + tab[ly::kStepPtr];
+  const int* row_ptr = tab + tab[ly::kRowPtr];
   // Thread t works on lane i = t mod z throughout, on the rows t / z, + m,
   // ... of each step.
   const int m = nt / z;  // the host launches m * z threads
@@ -329,30 +253,40 @@ layered_reverse_kernel(const float* __restrict__ llr,
   for (int u = t; u < n_cols * z; u += nt) gl_b[u] = gp[u];
 }
 
-int lane_threads(int z) {
-  return z < kMaxLanes ? (z + 31) / 32 * 32 : kMaxLanes;
-}
-
 }  // namespace
 
 extern "C" {
 
 // K5Lf. llr, out: [batch, n_cols * z] f32 (CUDA); plan: the int32 plan of
-// `grad_plan` (plan_len ints, on the card); tape_m: [num_iter, n_cols,
-// batch, z]; tape_c: [num_iter, n_edges, batch, z]. mode 0 boxplus, 1
-// (offset) min-sum. Launches on `stream`; returns the CUDA error code.
+// `layered_bp_layout` (K3's; plan_len ints, on the card) with its n_steps
+// row steps, edges numbered row by row; lanes per block, the edges of the
+// largest step, threads per block and cluster blocks per codeword as the
+// f32 layout gives them; tape_m: [num_iter, n_cols, batch, z]; tape_c:
+// [num_iter, n_edges, batch, z]. mode 0 boxplus, 1 (offset) min-sum.
+// Launches on `stream`; returns the CUDA error code.
 int sionna_ldpc_layered_tape(const float* llr, const int* plan, float* out,
                              float* tape_m, float* tape_c, int batch,
-                             int n_rows, int n_cols, int n_edges, int z,
-                             int plan_len, int num_iter, float clip,
-                             float offset, int mode, void* stream) {
-  if (bad_args(batch, n_rows, n_cols, n_edges, z, plan_len, num_iter, mode)) {
+                             int n_steps, int n_cols, int n_edges, int z,
+                             int lanes, int step_degree, int plan_len,
+                             int num_iter, float clip, float offset,
+                             int mode, int threads, int cluster,
+                             void* stream) {
+  if (ly::bad_layout(batch, n_cols, z, lanes, num_iter, mode, threads,
+                     cluster, step_degree, plan_len)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  layered_tape_kernel<<<batch, lane_threads(z), plan_len * sizeof(int),
-                        static_cast<cudaStream_t>(stream)>>>(
-      llr, plan, out, tape_m, tape_c, batch, n_rows, n_cols, n_edges, z,
-      plan_len, num_iter, clip, offset, mode);
+  const cudaError_t err = sionna_ldpc::launch_per_codeword(
+      cluster == 1                   ? layered_tape_kernel<1>
+      : cluster <= ly::kSmallCluster ? layered_tape_kernel<ly::kSmallCluster>
+                                     : layered_tape_kernel<ly::kMaxCluster>,
+      cluster > 1, batch, cluster, threads,
+      ly::smem_bytes<float>(n_cols, n_edges, z, lanes, step_degree,
+                            plan_len),
+      static_cast<cudaStream_t>(stream), llr, plan, out,
+      ly::Tapes{tape_m, tape_c, static_cast<size_t>(batch) * z}, n_steps,
+      n_cols, n_edges, z, lanes, step_degree, plan_len, num_iter, clip,
+      offset, mode);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -372,7 +306,7 @@ int sionna_ldpc_layered_reverse(const float* llr, const int* plan,
   if (batch <= 0 || n_steps <= 0 || n_cols <= 0 || n_edges <= 0 || z <= 0 ||
       num_iter < 0 || (mode != 0 && mode != 1) || threads <= 0 ||
       threads > kLbMaxThreads || threads % z != 0 || !v2c ||
-      plan_len < k5lb::kHeader) {
+      plan_len < ly::kHeader) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem =

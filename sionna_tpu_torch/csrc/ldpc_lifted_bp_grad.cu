@@ -8,21 +8,42 @@
 // and the VN phase). The plain versions are `flooding_tape_forward` and
 // `flooding_reverse` in sionna_tpu_torch/phy/fec/ldpc/lifted_grad.py.
 //
-// - K5f decodes as K1 (ldpc_lifted_bp.cu) does, check node from
-//   ldpc_cn_grad.cuh's cn_forward (K1's arithmetic, from ldpc_cn.cuh) and
-//   the VN sum llr + c2v[e0] + c2v[e1] + ... in column order, so its
-//   marginals are bit-identical to K1's, and writes the tape: tape[t] is
-//   the CN-aligned v2c that iteration t reads ([T, E, B, Z] f32; the carry
-//   of JAX's loop). Its c2v state is a [B, E, Z] slab in device memory, one
-//   block of SIONNA_K5_THREADS threads per codeword.
+// - K5f is K1 (ldpc_lifted_bp.cu) with its tape: it runs K1's code,
+//   `decode` of ldpc_lifted_bp.cuh, in K1's layout and plan
+//   (`lifted_bp_layout`), so its marginals are K1's bit for bit, and
+//   stores tape[t], the CN-aligned v2c that iteration t reads ([T, E, B,
+//   Z] f32; the carry of JAX's loop).
 // - K5b walks the iterations backwards. In iteration t it recomputes the
-//   c2v from tape[t] (the same code as K5f, so the same values); takes the
+//   c2v from tape[t] (K1's arithmetic, so the same values); takes the
 //   VN phase's reverse (the clips of the marginal, only in the last
 //   iteration, and of each v2c, JAX's 1/2 at the bound; the rolls inverted
 //   by the CN-aligned indexing), which leaves dL/dc2v over the c2v; then
 //   the CN phase's (cn_adjoint), into dL/dv2c; last, the initial clip of
 //   the LLRs. dL/dllr accumulates per VN lane in the output, in the same
 //   order as the plain reverse.
+//
+// What bounds K5f on an H100: K1's check-node arithmetic (95 FP32
+// operations per boxplus edge-lane update, 3.51 ms at n = 12288 x 2048
+// BP-20) against the bytes it must move, now the tape written once (9.91
+// GB there, 2.96 ms at 3.35 TB/s; 1.28 GB at the n = 2048 x 2000 link).
+// Its first design kept the c2v state in a [B, E, Z] slab in device
+// memory, one block of 256 threads per codeword, and read each v2c back
+// from the tape row it wrote an iteration before: about 2.5 GB of
+// message traffic per iteration at n = 12288 x 2048, which took it to
+// nearly twice K1's time (PERF.md, Findings). Now the state stays on chip
+// as in K1 (one f32 slot per edge lane in shared memory, the register
+// edges in registers, a cluster where the slots do not fit one block);
+// each CN unit (row r, lane l) stores the row's D v2c at tape[t][row_ptr[r]
+// + k][b][l] as it reads them (the register edge's from its register),
+// consecutive lanes at consecutive addresses, with streaming stores
+// (write-once data, read only by K5b; they measured faster than plain
+// stores); iteration 0's v2c, clip(llr), is what the first CN phase
+// reads, so there is no separate pass. Nothing is read back: the device
+// traffic is the LLRs, the marginals and the tape. The tape addresses
+// come from the kernel's parameters and loop counters at each unit, so
+// K5f keeps K1's 512 threads at 128 registers (the one-block variant
+// spills 12 bytes; fewer threads would need more register-edge units per
+// thread than K1 holds, a 2-block cluster at n = 12288).
 //
 // What bounds K5b on an H100: the check-node arithmetic, one forward
 // (95 FP32 operations per edge lane and iteration), a division and the
@@ -65,162 +86,45 @@
 #include <cuda_runtime.h>
 
 #include "ldpc_cn_grad.cuh"
-
-namespace cg = cooperative_groups;
+#include "ldpc_lifted_bp.cuh"
 
 namespace {
 
-using sionna_ldpc::bad_args;
+namespace cg = cooperative_groups;
+namespace fl = sionna_ldpc::flooding;
+using fl::lane_active;
+using fl::phase_barrier;
+using fl::slot_ptr;
 using sionna_ldpc::clampf;
 using sionna_ldpc::cn_adjoint;
 using sionna_ldpc::cn_forward;
 using sionna_ldpc::d_clip;
-using sionna_ldpc::lane_on;
-using sionna_ldpc::load_plan;
-using sionna_ldpc::Plan;
 using sionna_ldpc::with_degree;
 
-#ifndef SIONNA_K5_THREADS
-#error "build with the defines of LIFTED_BP_GRAD_KERNEL (lifted_grad.py)"
-#endif
-constexpr int kThreads = SIONNA_K5_THREADS;
-
-// The CN-aligned lane of edge e that VN lane j of its column meets.
-__device__ __forceinline__ int cn_lane(const Plan& p, int e, int j, int z) {
-  int l = j - p.shift[e];
-  return l < 0 ? l + z : l;
-}
-
-// CN phase of iteration t: c2v[e * z + l] (the codeword's slab) from the
-// v2c at v2c[e * estride + l].
-__device__ __forceinline__ void cn_phase(const Plan& p, const float* v2c,
-                                         size_t estride, float* c2v,
-                                         int n_rows, int z, float clip,
-                                         float offset, int mode) {
-  for (int u = threadIdx.x; u < n_rows * z; u += blockDim.x) {
-    const int r = u / z;
-    const int l = u - r * z;
-    const int p0 = p.row_ptr[r];
-    with_degree(p.row_ptr[r + 1] - p0, [&](auto dc) {
-      constexpr int D = decltype(dc)::value;
-      float m[D], out[D];
-      unsigned act = 0;
-#pragma unroll
-      for (int k = 0; k < D; ++k) {
-        m[k] = v2c[(p0 + k) * estride + l];
-        if (lane_on(p.range[p0 + k], z, l)) act |= 1u << k;
-      }
-      cn_forward<D>(m, act, clip, offset, mode, out);
-#pragma unroll
-      for (int k = 0; k < D; ++k) c2v[(p0 + k) * z + l] = out[k];
-    });
-  }
-}
-
-// K5f. llr, out: [B, C * z]; tape: [T, E, B, z]; c2v: [B, E, z] scratch.
-__global__ void __launch_bounds__(kThreads)
+// K5f: K1's decode with the tape, in K1's layout (the f32 log1p variant,
+// the only one under grad). tape: [num_iter, n_edges, batch, z].
+template <bool kMulti>
+__global__ void __launch_bounds__(fl::kMaxThreads, 1)
 flooding_tape_kernel(const float* __restrict__ llr,
                      const int* __restrict__ plan, float* __restrict__ out,
-                     float* __restrict__ tape, float* __restrict__ c2v,
-                     int batch, int n_rows, int n_cols, int n_edges, int z,
+                     fl::TapeRows tape, int n_cols, int z, int n_reg_rows,
+                     int n_plain_rows, int n_vn_cols, int state_floats,
                      int plan_len, int num_iter, float clip, float offset,
                      int mode) {
-  const size_t b = blockIdx.x;
-  const float* llr_b = llr + b * n_cols * z;
-  float* out_b = out + b * n_cols * z;
-  if (num_iter == 0) {
-    for (int u = threadIdx.x; u < n_cols * z; u += blockDim.x) {
-      out_b[u] = llr_b[u];
-    }
-    return;
-  }
-  const Plan p = load_plan(plan, plan_len);
-  const size_t estride = static_cast<size_t>(batch) * z;  // edge to edge
-  const size_t tstride = estride * n_edges;               // iteration
-  float* c2v_b = c2v + b * n_edges * z;
-  float* tape_b = tape + b * z;
-  // iteration 0 reads v2c = clip(llr) in CN alignment
-  for (int u = threadIdx.x; u < n_edges * z; u += blockDim.x) {
-    const int e = u / z;
-    const int l = u - e * z;
-    int j = l + p.shift[e];
-    if (j >= z) j -= z;
-    tape_b[e * estride + l] = clampf(llr_b[p.col[e] * z + j], clip);
-  }
-  __syncthreads();
-  for (int it = 0; it < num_iter; ++it) {
-    const float* v2c = tape_b + it * tstride;
-    cn_phase(p, v2c, estride, c2v_b, n_rows, z, clip, offset, mode);
-    __syncthreads();
-    // VN phase: marginal = clip(llr + c2v[e0] + c2v[e1] + ...) in the last
-    // iteration; else each edge's next v2c = clip(sum - its c2v)
-    const bool last = it == num_iter - 1;
-    float* next = tape_b + (it + 1) * tstride;
-    for (int u = threadIdx.x; u < n_cols * z; u += blockDim.x) {
-      const int c = u / z;
-      const int j = u - c * z;
-      const int q0 = p.col_ptr[c];
-      const int q1 = p.col_ptr[c + 1];
-      float tot = llr_b[u];
-      for (int q = q0; q < q1; ++q) {
-        const int e = p.col_edge[q];
-        tot = tot + c2v_b[e * z + cn_lane(p, e, j, z)];
-      }
-      if (last) {
-        out_b[u] = clampf(tot, clip);
-        continue;
-      }
-      for (int q = q0; q < q1; ++q) {
-        const int e = p.col_edge[q];
-        const int l = cn_lane(p, e, j, z);
-        next[e * estride + l] = clampf(tot - c2v_b[e * z + l], clip);
-      }
-    }
-    __syncthreads();
-  }
+  fl::decode<false, sionna_ldpc::kLog1p, kMulti, true>(
+      llr, plan, out, tape, n_cols, z, n_reg_rows, n_plain_rows, n_vn_cols,
+      state_floats, plan_len, num_iter, clip, offset, mode);
 }
 
-// K5b's layout limits, from lifted_grad.py (K5B_MAX_THREADS, ...).
+// K5b's layout limits, from lifted_grad.py (K5B_MAX_THREADS, ...). Its
+// plan is K1's (fl::kRowPtr, ...): a slot id indexes both slabs.
 #if !defined(SIONNA_K5B_MAX_THREADS) || !defined(SIONNA_K5B_MAX_CLUSTER) || \
-    !defined(SIONNA_K5B_REG_UNITS) || !defined(SIONNA_K5B_PLAN_ARRAYS)
+    !defined(SIONNA_K5B_REG_UNITS)
 #error "build with the defines of LIFTED_BP_GRAD_KERNEL (lifted_grad.py)"
 #endif
 constexpr int kBMaxThreads = SIONNA_K5B_MAX_THREADS;
 constexpr int kBMaxCluster = SIONNA_K5B_MAX_CLUSTER;
 constexpr int kRegUnits = SIONNA_K5B_REG_UNITS;
-
-// Header of K5b's plan (K1's): offsets of its arrays, in the order of
-// K1_PLAN_ARRAYS.
-namespace k5b {
-enum {
-  kRowPtr, kRowSlot, kRowRange, kColPtr, kColSlot, kColShift, kRegRows,
-  kRegPos, kRegCol, kRegShift, kPlainRows, kVnCols, kHeader
-};
-static_assert(kHeader == SIONNA_K5B_PLAN_ARRAYS,
-              "the plan's arrays differ from K1_PLAN_ARRAYS");
-}  // namespace k5b
-
-// Lane l of a slot of `slab`. Single block: `slot` is the edge's index in
-// the block's slabs. Cluster: (owner block << 16) | index.
-template <bool kMulti>
-__device__ __forceinline__ float* slot_ptr(float* slab, int slot, int z,
-                                           int l) {
-  if constexpr (kMulti) {
-    float* base = cg::this_cluster().map_shared_rank(slab, slot >> 16);
-    return base + (slot & 0xffff) * z + l;
-  } else {
-    return slab + slot * z + l;
-  }
-}
-
-template <bool kMulti>
-__device__ __forceinline__ void phase_barrier() {
-  if constexpr (kMulti) {
-    cg::this_cluster().sync();
-  } else {
-    __syncthreads();
-  }
-}
 
 // Copies one iteration's tape rows of the codeword (row e at src + e *
 // estride, z floats) into dst [E][z] with cp.async, 16 bytes a copy where
@@ -267,7 +171,7 @@ __device__ __forceinline__ float cn_unit_forward(
 #pragma unroll
   for (int k = 0; k < D; ++k) {
     m[k] = rows[k * rstride + l];
-    if (lane_on(range[k], z, l)) act |= 1u << k;
+    if (lane_active(range[k], z, l)) act |= 1u << k;
   }
   cn_forward<D>(m, act, clip, offset, mode, out);
   float reg = 0.f;
@@ -300,7 +204,7 @@ __device__ __forceinline__ float cn_unit_adjoint(
     } else {
       g[k] = *slot_ptr<kMulti>(slab_c, slot[k], z, l);
     }
-    if (lane_on(range[k], z, l)) act |= 1u << k;
+    if (lane_active(range[k], z, l)) act |= 1u << k;
   }
   cn_adjoint<D>(m, g, act, clip, offset, mode);
   float reg = 0.f;
@@ -383,18 +287,18 @@ flooding_reverse_kernel(const float* __restrict__ llr,
   // every block of the cluster is running (and has its plan) before any
   // slot of another block is written
   phase_barrier<kMulti>();
-  const int* row_ptr = tab + tab[k5b::kRowPtr];
-  const int* row_slot = tab + tab[k5b::kRowSlot];
-  const int* row_range = tab + tab[k5b::kRowRange];
-  const int* col_ptr = tab + tab[k5b::kColPtr];
-  const int* col_slot = tab + tab[k5b::kColSlot];
-  const int* col_shift = tab + tab[k5b::kColShift];
-  const int* reg_rows = tab + tab[k5b::kRegRows];
-  const int* reg_pos = tab + tab[k5b::kRegPos];
-  const int* reg_col = tab + tab[k5b::kRegCol];
-  const int* reg_shift = tab + tab[k5b::kRegShift];
-  const int* plain_rows = tab + tab[k5b::kPlainRows];
-  const int* vn_cols = tab + tab[k5b::kVnCols];
+  const int* row_ptr = tab + tab[fl::kRowPtr];
+  const int* row_slot = tab + tab[fl::kRowSlot];
+  const int* row_range = tab + tab[fl::kRowRange];
+  const int* col_ptr = tab + tab[fl::kColPtr];
+  const int* col_slot = tab + tab[fl::kColSlot];
+  const int* col_shift = tab + tab[fl::kColShift];
+  const int* reg_rows = tab + tab[fl::kRegRows];
+  const int* reg_pos = tab + tab[fl::kRegPos];
+  const int* reg_col = tab + tab[fl::kRegCol];
+  const int* reg_shift = tab + tab[fl::kRegShift];
+  const int* plain_rows = tab + tab[fl::kPlainRows];
+  const int* vn_cols = tab + tab[fl::kVnCols];
   const int n_reg_units = n_reg_rows * z;
   // register edges of CN units g + k * n_threads: dL/dv2c, dL/dc2v
   float reg_gv[kRegUnits], reg_gc[kRegUnits];
@@ -623,22 +527,33 @@ cudaError_t launch_reverse(const float* llr, const int* plan,
 extern "C" {
 
 // K5f. llr, out: [batch, n_cols * z] f32 (CUDA); plan: the int32 plan of
-// `grad_plan` (plan_len ints, on the card); tape: [num_iter, n_edges,
-// batch, z]; c2v: [batch, n_edges, z] scratch (unused when num_iter is 0).
-// mode 0 boxplus, 1 (offset) min-sum. Launches on `stream` and returns the
-// CUDA error code (0 on success).
+// `lifted_bp_layout` (K1's; plan_len ints, on the card), whose shared
+// slots take state_floats floats per block, with edges numbered row by
+// row; tape: [num_iter, n_edges, batch, z]; threads per block and cluster
+// blocks per codeword as the layout gives them. mode 0 boxplus, 1
+// (offset) min-sum. Launches on `stream` and returns the CUDA error code
+// (0 on success).
 int sionna_ldpc_flooding_tape(const float* llr, const int* plan, float* out,
-                              float* tape, float* c2v, int batch, int n_rows,
-                              int n_cols, int n_edges, int z, int plan_len,
-                              int num_iter, float clip, float offset,
-                              int mode, void* stream) {
-  if (bad_args(batch, n_rows, n_cols, n_edges, z, plan_len, num_iter, mode)) {
+                              float* tape, int batch, int n_cols,
+                              int n_edges, int z, int n_reg_rows,
+                              int n_plain_rows, int n_vn_cols,
+                              int state_floats, int plan_len, int num_iter,
+                              float clip, float offset, int mode,
+                              int threads, int cluster, void* stream) {
+  if (fl::bad_layout(batch, z, n_reg_rows, num_iter, mode, threads, cluster,
+                     plan_len) ||
+      n_edges <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  flooding_tape_kernel<<<batch, kThreads, plan_len * sizeof(int),
-                         static_cast<cudaStream_t>(stream)>>>(
-      llr, plan, out, tape, c2v, batch, n_rows, n_cols, n_edges, z, plan_len,
+  const cudaError_t err = sionna_ldpc::launch_per_codeword(
+      cluster > 1 ? flooding_tape_kernel<true> : flooding_tape_kernel<false>,
+      cluster > 1, batch, cluster, threads,
+      fl::smem_bytes(state_floats, plan_len),
+      static_cast<cudaStream_t>(stream), llr, plan, out,
+      fl::TapeRows{tape, static_cast<size_t>(batch) * z, n_edges}, n_cols,
+      z, n_reg_rows, n_plain_rows, n_vn_cols, state_floats, plan_len,
       num_iter, clip, offset, mode);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -663,7 +578,7 @@ int sionna_ldpc_flooding_reverse(const float* llr, const int* plan,
       threads <= 0 || threads > kBMaxThreads || threads % 32 != 0 ||
       cluster < 1 || cluster > kBMaxCluster || slab_floats < 0 ||
       n_reg_rows * z > kRegUnits * threads * cluster ||
-      plan_len < k5b::kHeader) {
+      plan_len < fl::kHeader) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -68,8 +68,8 @@ SMEM_PER_BLOCK = 232_448
 #: 1 KB besides its own, in bytes.
 SMEM_PER_SM = 233_472
 # Limits of the kernels' layouts. They are defined here only: nvcc gets
-# them as defines, from which csrc/ldpc_lifted_bp.cu (K1),
-# csrc/ldpc_layered_bp.cu (K3) and their shared check-node code
+# them as defines, from which K1's code (csrc/ldpc_lifted_bp.cuh), K3's
+# (csrc/ldpc_layered_bp.cuh) and their shared check-node code
 # csrc/ldpc_cn.cuh take their constants. The row degrees the check-node
 # code has a case for (it checks its cases against them): those of the
 # 5G base graphs' rows, 3-10 and 19, and 1-2.
@@ -96,6 +96,18 @@ K3_MAX_CLUSTER = 8
 K3_PLAN_ARRAYS = ("edge", "step_ptr", "row_ptr")
 _CN_DEFINES = {"SIONNA_CN_ROW_DEGREE_MASK":
                sum(1 << d for d in CN_ROW_DEGREES)}
+# nvcc's defines of K1's and K3's code (csrc/ldpc_lifted_bp.cuh and
+# csrc/ldpc_layered_bp.cuh), which the gradient's tape kernels run too
+_K1_DEFINES = {"SIONNA_K1_MAX_THREADS": K1_MAX_THREADS,
+               "SIONNA_K1_MAX_CLUSTER": K1_MAX_CLUSTER,
+               "SIONNA_K1_REG_UNITS": K1_REG_UNITS[False],
+               "SIONNA_K1_REG_UNITS_CLUSTER": K1_REG_UNITS[True],
+               "SIONNA_K1_PLAN_ARRAYS": len(K1_PLAN_ARRAYS),
+               **_CN_DEFINES}
+_K3_DEFINES = {"SIONNA_K3_MAX_THREADS": K3_MAX_THREADS,
+               "SIONNA_K3_MAX_CLUSTER": K3_MAX_CLUSTER,
+               "SIONNA_K3_PLAN_ARRAYS": len(K3_PLAN_ARRAYS),
+               **_CN_DEFINES}
 
 #: The CUDA kernel of the lifted BP decoder (built on first use).
 LIFTED_BP_KERNEL = CudaKernel(
@@ -107,14 +119,7 @@ LIFTED_BP_KERNEL = CudaKernel(
                                   + [_I] * 5 + [_P], _I),
         "sionna_cuda_error_string": ([_I], ctypes.c_char_p),
     },
-    defines={
-        "SIONNA_K1_MAX_THREADS": K1_MAX_THREADS,
-        "SIONNA_K1_MAX_CLUSTER": K1_MAX_CLUSTER,
-        "SIONNA_K1_REG_UNITS": K1_REG_UNITS[False],
-        "SIONNA_K1_REG_UNITS_CLUSTER": K1_REG_UNITS[True],
-        "SIONNA_K1_PLAN_ARRAYS": len(K1_PLAN_ARRAYS),
-        **_CN_DEFINES,
-    })
+    defines=_K1_DEFINES)
 
 #: The CUDA kernel of the layered lifted BP decoder (built on first use).
 LAYERED_BP_KERNEL = CudaKernel(
@@ -126,12 +131,7 @@ LAYERED_BP_KERNEL = CudaKernel(
                                    + [_I] * 4 + [_P], _I),
         "sionna_cuda_error_string": ([_I], ctypes.c_char_p),
     },
-    defines={
-        "SIONNA_K3_MAX_THREADS": K3_MAX_THREADS,
-        "SIONNA_K3_MAX_CLUSTER": K3_MAX_CLUSTER,
-        "SIONNA_K3_PLAN_ARRAYS": len(K3_PLAN_ARRAYS),
-        **_CN_DEFINES,
-    })
+    defines=_K3_DEFINES)
 
 
 # ----------------------------------------------------------------------
@@ -983,7 +983,7 @@ class LDPC5GLiftedBP(nn.Module):
         self._k1_plans = {}  # K1's plan by device (k1_plan)
         self._k3_layouts = {}  # K3's layout by storage dtype (k3_layout)
         self._k3_plans = {}  # K3's plan by device (k3_plan)
-        self._grad_plans = {}  # K5 layouts and plans (lifted_grad)
+        self._grad_plans = {}  # K5b/K5Lb layouts and plans (lifted_grad)
 
     def k1_layout(self):
         """:func:`lifted_bp_layout` of this code (cached)."""

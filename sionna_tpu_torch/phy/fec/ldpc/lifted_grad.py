@@ -16,8 +16,12 @@ hand, in two forms that compute the same function:
   (``csrc/ldpc_lifted_bp_grad.cu``), K5Lf and K5Lb
   (``csrc/ldpc_layered_bp_grad.cu``), behind :func:`flooding_tape_cuda`,
   :func:`flooding_reverse_cuda`, :func:`layered_tape_cuda` and
-  :func:`layered_reverse_cuda`. The backward kernels keep their state on
-  chip in the layouts that :func:`flooding_grad_layout` and
+  :func:`layered_reverse_cuda`. Every kernel keeps its state on chip. The
+  tape kernels are K1 and K3 with a tape: they run K1's and K3's own code
+  (``csrc/ldpc_lifted_bp.cuh``, ``csrc/ldpc_layered_bp.cuh``) in K1's and
+  K3's layouts and plans (``LDPC5GLiftedBP.k1_layout``, ``k3_layout``),
+  store the tape as they go and never read it back. The backward kernels
+  run in the layouts that :func:`flooding_grad_layout` and
   :func:`layered_grad_layout` plan.
 
 :class:`LiftedBPFunction` is the ``torch.autograd.Function`` that
@@ -49,32 +53,25 @@ import torch
 import torch.nn.functional as F
 
 from ...._build import CudaKernel
-from .decoding import (_CN_DEFINES, _F, _I, _P, K1_PLAN_ARRAYS,
-                       K3_PLAN_ARRAYS, SMEM_PER_BLOCK, SMEM_PER_SM,
-                       _check_llrs,
-                       _check_rows_and_ranges, _csr, _flooding_plan,
-                       _flooding_slots, _flooding_tables, _layered_bp_plan,
-                       _lifted_cn_phase, _pack_plan)
+from .decoding import (_F, _I, _K1_DEFINES, _K3_DEFINES, _P,
+                       SMEM_PER_BLOCK, SMEM_PER_SM, _check_llrs,
+                       _flooding_plan, _flooding_slots, _flooding_tables,
+                       _layered_bp_plan, _lifted_cn_phase)
 
 __all__ = ["LiftedBPFunction", "lifted_bp_grad", "flooding_tape_forward",
            "flooding_reverse", "layered_tape_forward", "layered_reverse",
            "flooding_tape_cuda", "flooding_reverse_cuda",
-           "layered_tape_cuda", "layered_reverse_cuda", "grad_plan",
+           "layered_tape_cuda", "layered_reverse_cuda",
            "flooding_grad_layout", "layered_grad_layout",
            "FloodingGradLayout", "LayeredGradLayout",
            "LIFTED_BP_GRAD_KERNEL", "LAYERED_BP_GRAD_KERNEL"]
 
-#: The arrays of the K5f/K5Lf plan, in order; the plan starts with their
-#: offsets (``decoding._pack_plan``).
-GRAD_PLAN_ARRAYS = ("row_ptr", "edge_col", "edge_shift", "edge_range",
-                    "col_ptr", "col_edge")
-#: Threads per block of K5f (one codeword per block).
-K5_THREADS = 256
 # Limits of the backward kernels' layouts, defined here only (nvcc gets
-# them as defines). K5b: threads per block (its launch bound: 384 leave a
-# thread 168 registers for the check node's adjoint), blocks per cluster
-# (the portable most), register-edge CN units per thread. Its plan is
-# K1's (``K1_PLAN_ARRAYS``).
+# them as defines, beside K1's or K3's, whose code the tape kernels run).
+# K5b: threads per block (its launch bound: 384 leave a thread 168
+# registers for the check node's adjoint), blocks per cluster (the
+# portable most), register-edge CN units per thread. Its plan is K1's
+# (``K1_PLAN_ARRAYS``).
 K5B_MAX_THREADS = 384
 K5B_MAX_CLUSTER = 8
 K5B_REG_UNITS = 8
@@ -86,16 +83,6 @@ K5LB_MAX_THREADS = 384
 K5LB_MIN_BLOCKS = 2
 #: The warps one SM holds at K5Lb's registers.
 K5LB_SM_WARPS = K5LB_MIN_BLOCKS * K5LB_MAX_THREADS // 32
-_GRAD_DEFINES = {"SIONNA_K5_PLAN_ARRAYS": len(GRAD_PLAN_ARRAYS),
-                 "SIONNA_K5_THREADS": K5_THREADS,
-                 "SIONNA_K5B_MAX_THREADS": K5B_MAX_THREADS,
-                 "SIONNA_K5B_MAX_CLUSTER": K5B_MAX_CLUSTER,
-                 "SIONNA_K5B_REG_UNITS": K5B_REG_UNITS,
-                 "SIONNA_K5B_PLAN_ARRAYS": len(K1_PLAN_ARRAYS),
-                 "SIONNA_K5LB_MAX_THREADS": K5LB_MAX_THREADS,
-                 "SIONNA_K5LB_MIN_BLOCKS": K5LB_MIN_BLOCKS,
-                 "SIONNA_K5LB_PLAN_ARRAYS": len(K3_PLAN_ARRAYS),
-                 **_CN_DEFINES}
 _DEC = "sionna_tpu/phy/fec/ldpc/decoding.py"
 
 #: K5f, the flooding decode with its v2c tape, and K5b, its reverse.
@@ -104,13 +91,15 @@ LIFTED_BP_GRAD_KERNEL = CudaKernel(
     source="ldpc_lifted_bp_grad.cu",
     replaces=f"{_DEC}:1234",
     functions={
-        "sionna_ldpc_flooding_tape": ([_P] * 5 + [_I] * 7 + [_F, _F, _I]
-                                      + [_P], _I),
+        "sionna_ldpc_flooding_tape": ([_P] * 4 + [_I] * 10 + [_F, _F]
+                                      + [_I] * 3 + [_P], _I),
         "sionna_ldpc_flooding_reverse": ([_P] * 5 + [_I] * 11
                                          + [_F, _F] + [_I] * 3 + [_P], _I),
         "sionna_cuda_error_string": ([_I], ctypes.c_char_p),
     },
-    defines=_GRAD_DEFINES)
+    defines={"SIONNA_K5B_MAX_THREADS": K5B_MAX_THREADS,
+             "SIONNA_K5B_MAX_CLUSTER": K5B_MAX_CLUSTER,
+             "SIONNA_K5B_REG_UNITS": K5B_REG_UNITS, **_K1_DEFINES})
 
 #: K5Lf, the layered decode with its tape, and K5Lb, its reverse.
 LAYERED_BP_GRAD_KERNEL = CudaKernel(
@@ -118,13 +107,14 @@ LAYERED_BP_GRAD_KERNEL = CudaKernel(
     source="ldpc_layered_bp_grad.cu",
     replaces=f"{_DEC}:1203",
     functions={
-        "sionna_ldpc_layered_tape": ([_P] * 5 + [_I] * 7 + [_F, _F, _I]
-                                     + [_P], _I),
+        "sionna_ldpc_layered_tape": ([_P] * 5 + [_I] * 9 + [_F, _F]
+                                     + [_I] * 3 + [_P], _I),
         "sionna_ldpc_layered_reverse": ([_P] * 8 + [_I] * 7
                                         + [_F, _F] + [_I] * 2 + [_P], _I),
         "sionna_cuda_error_string": ([_I], ctypes.c_char_p),
     },
-    defines=_GRAD_DEFINES)
+    defines={"SIONNA_K5LB_MAX_THREADS": K5LB_MAX_THREADS,
+             "SIONNA_K5LB_MIN_BLOCKS": K5LB_MIN_BLOCKS, **_K3_DEFINES})
 
 
 # ----------------------------------------------------------------------
@@ -434,25 +424,15 @@ def layered_reverse(lifted, llr_int, tape_m, tape_c, g_marg):
 # The CUDA kernels.
 # ----------------------------------------------------------------------
 
-def grad_plan(lifted):
-    """The int32 plan of the K5 kernels for the code of ``lifted``: the
-    row pointers into the edges (numbered row by row), each edge's column,
-    shift and cyclic active-lane range (lo | length << 16), and the column
-    pointers into the edge ids by column (``GRAD_PLAN_ARRAYS``). Raises
-    ValueError for a row degree outside ``CN_ROW_DEGREES`` or a mask that
-    is not one cyclic range."""
-    edges = lifted._edges
-    n_rows, n_cols = lifted._n_row_blocks, lifted._n_col_blocks
-    rows = [lifted._row_edges.get(r, []) for r in range(n_rows)]
-    ranges = _check_rows_and_ranges(lifted, rows, "K5")
-    row_ptr, row_ids = _csr(dict(enumerate(rows)), n_rows)
-    if row_ids != list(range(len(edges))):
-        raise ValueError("K5 takes edges numbered row by row")
-    col_ptr, col_ids = _csr(lifted._col_edges, n_cols)
-    arrays = [row_ptr, [c for _, c, _ in edges], [s for _, _, s in edges],
-              [lo | (n << 16) for lo, n in ranges], col_ptr, col_ids]
-    assert len(arrays) == len(GRAD_PLAN_ARRAYS)
-    return _pack_plan(arrays)
+def _check_rows_in_order(lifted, name):
+    """Raises ValueError unless the edges of ``lifted``'s code are
+    numbered row by row, as the gradient's kernel ``name`` takes them: an
+    edge's row position in K1's or K3's plan is then its index in the
+    tapes."""
+    rows = [e for r in range(lifted._n_row_blocks)
+            for e in lifted._row_edges.get(r, [])]
+    if rows != list(range(len(lifted._edges))):
+        raise ValueError(f"{name} takes edges numbered row by row")
 
 
 class FloodingGradLayout(NamedTuple):
@@ -505,8 +485,7 @@ def flooding_grad_layout(lifted):
     cluster of up to ``K5B_MAX_CLUSTER`` blocks that holds the state)."""
     z, n_e = lifted._z, len(lifted._edges)
     t = _flooding_tables(lifted, "K5b")
-    if [e for r in t.rows for e in r] != list(range(n_e)):
-        raise ValueError("K5b takes edges numbered row by row")
+    _check_rows_in_order(lifted, "K5b")
     units = max(len(t.rows), len(t.vn_cols)) * z
     for cluster in range(1, K5B_MAX_CLUSTER + 1):
         per_block = -(-len(t.shared) // cluster)
@@ -582,8 +561,7 @@ def layered_grad_layout(lifted):
     for one block)."""
     z, n_cols, n_e = lifted._z, lifted._n_col_blocks, len(lifted._edges)
     tables = _layered_bp_plan(lifted, "K5Lb")
-    if list(tables.slots) != list(range(n_e)):
-        raise ValueError("K5Lb takes edges numbered row by row")
+    _check_rows_in_order(lifted, "K5Lb")
     smem = (tables.plan.size + 2 * n_cols * z) * 4
     if z > K5LB_MAX_THREADS or smem > SMEM_PER_BLOCK:
         raise ValueError(
@@ -602,19 +580,12 @@ def layered_grad_layout(lifted):
 
 
 def _cached(lifted, key, make):
-    """``make()``, kept on ``lifted`` under ``key``: the K5 kernels'
+    """``make()``, kept on ``lifted`` under ``key``: the backward kernels'
     layouts and their plans on each device."""
     cache = lifted._grad_plans
     if key not in cache:
         cache[key] = make()
     return cache[key]
-
-
-def _plan_on(lifted, device):
-    """:func:`grad_plan` as an int32 tensor on ``device`` (cached)."""
-    device = torch.device(device)
-    return _cached(lifted, ("k5", device), lambda: torch.as_tensor(
-        grad_plan(lifted), device=device))
 
 
 def _padded(lifted, x):
@@ -641,34 +612,29 @@ def _cn_args(lifted):
             0 if lifted._cn_mode == "boxplus" else 1)
 
 
-def _launch(kern, fn_name, lifted, llr_int, num_iter, pointers, variant):
-    """A tape kernel's launch: ``fn_name`` of ``kern`` with ``pointers``
-    (tensors), :func:`grad_plan`, the code's sizes and the check node's
-    constants on the current stream; raises on its error and counts it."""
-    plan = _plan_on(lifted, llr_int.device)
-    args = [t.data_ptr() for t in pointers[:1]] + [plan.data_ptr()] + \
-        [t.data_ptr() for t in pointers[1:]]
-    _call(kern, fn_name, lifted, llr_int.device, (
-        *args, llr_int.shape[0], lifted._n_row_blocks,
-        lifted._n_col_blocks, len(lifted._edges), lifted._z, plan.numel(),
-        num_iter, *_cn_args(lifted)), variant)
-
-
 def flooding_tape_cuda(lifted, llr_int, num_iter):
     """K5f: :func:`flooding_tape_forward` as one launch of
     ``csrc/ldpc_lifted_bp_grad.cu`` on the current stream, counted as
     "forward". llr_int: f32 CUDA [B, num_vns] on the device of
-    ``lifted``'s tables. Its marginals are bit-identical to K1's."""
+    ``lifted``'s tables. K5f runs K1's code in K1's layout and plan (the
+    message state in shared memory, so nothing but the outputs is
+    allocated): its marginals are K1's bit for bit."""
     kern = LIFTED_BP_GRAD_KERNEL
+    _check_rows_in_order(lifted, "K5f")
     _check_llrs(kern, lifted, llr_int, num_iter, None, "log1p")
     z, batch, n_e = lifted._z, llr_int.shape[0], len(lifted._edges)
     llr_p = _padded(lifted, llr_int)
     out = torch.empty_like(llr_p)
     tape = llr_p.new_empty((num_iter, n_e, batch, z))
     if batch:
-        c2v = llr_p.new_empty((batch, n_e, z) if num_iter else (0,))
-        _launch(kern, "sionna_ldpc_flooding_tape", lifted, llr_int,
-                num_iter, (llr_p, out, tape, c2v), "forward")
+        dev = llr_int.device
+        layout, plan = lifted.k1_layout(), lifted.k1_plan(dev)
+        _call(kern, "sionna_ldpc_flooding_tape", lifted, dev, (
+            llr_p.data_ptr(), plan.data_ptr(), out.data_ptr(),
+            tape.data_ptr(), batch, lifted._n_col_blocks, n_e, z,
+            layout.n_reg_rows, layout.n_plain_rows, layout.n_vn_cols,
+            layout.state_floats, plan.numel(), num_iter, *_cn_args(lifted),
+            layout.threads, layout.cluster), "forward")
     return out[:, :lifted._num_vns], tape
 
 
@@ -706,17 +672,27 @@ def flooding_reverse_cuda(lifted, llr_int, tape, g_marg):
 def layered_tape_cuda(lifted, llr_int, num_iter):
     """K5Lf: :func:`layered_tape_forward` as one launch of
     ``csrc/ldpc_layered_bp_grad.cu`` on the current stream, counted as
-    "forward". Its marginals are bit-identical to K3's."""
+    "forward". K5Lf runs K3's code in K3's f32 layout and plan (the
+    posterior and c2v in shared memory, so nothing but the outputs is
+    allocated): its marginals are K3's bit for bit."""
     kern = LAYERED_BP_GRAD_KERNEL
+    _check_rows_in_order(lifted, "K5Lf")
     _check_llrs(kern, lifted, llr_int, num_iter, None, "log1p")
     z, batch, n_e = lifted._z, llr_int.shape[0], len(lifted._edges)
+    n_cols = lifted._n_col_blocks
     llr_p = _padded(lifted, llr_int)
     out = torch.empty_like(llr_p)
-    tape_m = llr_p.new_empty((num_iter, lifted._n_col_blocks, batch, z))
+    tape_m = llr_p.new_empty((num_iter, n_cols, batch, z))
     tape_c = llr_p.new_empty((num_iter, n_e, batch, z))
     if batch:
-        _launch(kern, "sionna_ldpc_layered_tape", lifted, llr_int, num_iter,
-                (llr_p, out, tape_m, tape_c), "forward")
+        dev = llr_int.device
+        layout, plan = lifted.k3_layout(None), lifted.k3_plan(dev)
+        _call(kern, "sionna_ldpc_layered_tape", lifted, dev, (
+            llr_p.data_ptr(), plan.data_ptr(), out.data_ptr(),
+            tape_m.data_ptr(), tape_c.data_ptr(), batch, len(layout.steps),
+            n_cols, n_e, z, layout.lanes, layout.step_degree, plan.numel(),
+            num_iter, *_cn_args(lifted), layout.threads, layout.cluster),
+            "forward")
     return out[:, :lifted._num_vns], tape_m, tape_c
 
 

@@ -5,38 +5,44 @@ K3 (layered-10, boxplus): f32 and bf16 c2v storage at the flagship code
 n=12288 at batch 2048 and at BG1 with Z=384, n=16896 and n=25344 (the
 largest 5G code) at batch 2048, and f32 at the coded-AWGN code n=2048 at
 batch 2000. K1 (BP-20, f32, boxplus) at the flagship shape. The gradient's
-backward kernels K5b (BP-20) and K5Lb (layered-10), boxplus, at the
-coded-AWGN link's n=2048 x 2000 and the flagship's n=12288 x 2048. The
-other checkout's package is imported beside this one (as
-``sionna_tpu_torch_other``; the package's imports are relative) and runs
-through its own ``layered_bp_cuda``, ``lifted_bp_cuda``,
+tape kernels K5f (BP-20) and K5Lf (layered-10) and backward kernels K5b
+and K5Lb, boxplus, at the coded-AWGN link's n=2048 x 2000 and the
+flagship's n=12288 x 2048. The other checkout's package is imported
+beside this one (as ``sionna_tpu_torch_other``; the package's imports
+are relative) and runs through its own ``layered_bp_cuda``,
+``lifted_bp_cuda``, ``flooding_tape_cuda``, ``layered_tape_cuda``,
 ``flooding_reverse_cuda`` and ``layered_reverse_cuda``, which build its
 kernels from its own sources into its own ``build/``.
 
-For each K1/K3 case it checks that both kernels give this tree's plain
-decode's marginals exactly; for each K5b/K5Lb case, on one tape and one
-dL/dmarg (this tree's K5f/K5Lf), that both give this tree's plain
-reverse's gradient within ``GRAD_REL_TOL`` of its largest value, and it
-prints their largest difference from each other. Then it times them in
-the order other, this, this, other (CUDA events, one warm-up, ``--reps``
-calls each); a code the other checkout's layout refuses is timed on this
-tree's kernel alone. Prints one JSON line per case (with this tree's
-layout of the kernel). Then it times this tree's K3 f32 at the
-coded-AWGN shape with 1-5 threads per lane, in the order 1..5, 5..1 (the
-layout's choice at that code is one), and prints the card.
+First it prints ptxas's registers, stack and spill of every kernel of
+both checkouts' libraries that the cases use, entry by entry. For each
+K1/K3 case it checks that both kernels give this tree's plain decode's
+marginals exactly; for each K5f/K5Lf case, that both give this tree's
+plain tape forward's marginals and tapes exactly; for each K5b/K5Lb
+case, on one tape and one dL/dmarg (this tree's K5f/K5Lf), that both
+give this tree's plain reverse's gradient within ``GRAD_REL_TOL`` of its
+largest value, and it prints their largest difference from each other.
+Then it times them in the order other, this, this, other (CUDA events,
+one warm-up, ``--reps`` calls each); a code the other checkout's layout
+refuses is timed on this tree's kernel alone. Prints one JSON line per
+case (with this tree's layout of the kernel). Then it times this tree's
+K3 f32 at the coded-AWGN shape with 1-5 threads per lane, in the order
+1..5, 5..1 (the layout's choice at that code is one), and prints the
+card.
 
 Run on the card from the repository root, with the other checkout's
 package and LDPC tables unpacked under ``build/`` (gitignored), e.g.
 ``git archive <commit> sionna_tpu_torch sionna_tpu/phy/fec/ldpc/codes |
 tar -x -C build/parent``:
 ``python -m sionna_tpu_torch.tools.kernel_compare --parent build/parent``
-(``--kernels K5b K5Lb`` for the gradient kernels alone).
+(``--kernels K5f K5Lf K5b K5Lb`` for the gradient kernels alone).
 """
 
 import argparse
 import importlib
 import importlib.util
 import json
+import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -65,6 +71,10 @@ CASES = [("K3", None, "n=12288 x 2048"),
          ("K3", None, "n=25344 x 2048"),
          ("K3", torch.bfloat16, "n=25344 x 2048"),
          ("K1", None, "n=12288 x 2048"),
+         ("K5f", None, "n=2048 x 2000"),
+         ("K5Lf", None, "n=2048 x 2000"),
+         ("K5f", None, "n=12288 x 2048"),
+         ("K5Lf", None, "n=12288 x 2048"),
          ("K5b", None, "n=2048 x 2000"),
          ("K5Lb", None, "n=2048 x 2000"),
          ("K5b", None, "n=12288 x 2048"),
@@ -152,6 +162,65 @@ def llrs(dec, batch, ebno_db, gen):
     return dec.recover_llrs(-4 * y / no)
 
 
+def entry_name(mangled):
+    """A kernel's mangled name without its translation unit's anonymous
+    namespace, which carries a hash of the file."""
+    return re.sub(r"(?<=_ZN)\d+_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_"
+                  r"[0-9a-f]{8}", "", mangled)
+
+
+def ptxas_figures(kern):
+    """{entry: ptxas's registers, stack and spill figures} of each kernel
+    in the library of ``kern`` (built), by mangled entry name
+    (``entry_name``)."""
+    out, entry = {}, None
+    for line in (kern.build_log or "").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = entry_name(m.group(1))
+        elif entry and ("registers" in line or "spill" in line):
+            out.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
+    return {e: "; ".join(v) for e, v in out.items()}
+
+
+def kept(out, name, fn):
+    """A call of ``fn`` that leaves its output at ``out[name]``, the last
+    call's output freed before it starts."""
+    def call():
+        out.pop(name, None)
+        out[name] = fn()
+    return call
+
+
+def tape_case(kernel, shape, lift, other_lift, other_lg, x, reps):
+    """One K5f/K5Lf case: both checkouts' tape kernel held to this tree's
+    plain tape forward (marginals and tapes identical), then timed in
+    turns. Returns the case's JSON record."""
+    layered = kernel == "K5Lf"
+    if layered:
+        tape_k, plain, it = lg.layered_tape_cuda, lg.layered_tape_forward, 10
+    else:
+        tape_k, plain, it = lg.flooding_tape_cuda, lg.flooding_tape_forward, 20
+    other_k = getattr(other_lg, tape_k.__name__)
+    out = {}
+    new = kept(out, "this", lambda: tape_k(lift, x, it))
+    old = kept(out, "other", lambda: other_k(other_lift, x, it))
+    want = plain(lift, x, it)
+    for name, call in (("this", new), ("other", old)):
+        call()
+        for got, ref in zip(out.pop(name), want):
+            identical(got, ref, f"{name} {kernel} {shape}")
+    del want
+    (o1, o2), (n1, n2) = in_turns(reps, old, new)
+    out.clear()
+    layout = lift.k3_layout(None) if layered else lift.k1_layout()
+    return {"kernel": kernel, "shape": f"{shape}, "
+            f"{'layered-10' if layered else 'BP-20'} boxplus",
+            "other_ms": [o1, o2], "this_ms": [n1, n2],
+            "threads": layout.threads, "cluster": layout.cluster,
+            "smem_bytes": layout.smem_bytes}
+
+
 def grad_case(kernel, shape, lift, other_lift, other_lg, x, gen, reps):
     """One K5b/K5Lb case: both checkouts' backward kernel on this tree's
     tape against the plain reverse and each other, then timed in turns.
@@ -169,14 +238,8 @@ def grad_case(kernel, shape, lift, other_lift, other_lg, x, gen, reps):
     del marg
     other_back = getattr(other_lg, back.__name__)
     out = {}
-
-    def kept(name, fn):
-        def call():
-            out.pop(name, None)
-            out[name] = fn()
-        return call
-    new = kept("this", lambda: back(lift, x, *tapes, g))
-    old = kept("other", lambda: other_back(other_lift, x, *tapes, g))
+    new = kept(out, "this", lambda: back(lift, x, *tapes, g))
+    old = kept(out, "other", lambda: other_back(other_lift, x, *tapes, g))
     new()
     old()
     want = plain(lift, x, *tapes, g)
@@ -201,8 +264,8 @@ def main():
     parser.add_argument("--parent", required=True,
                         help="root of the other checkout")
     parser.add_argument("--reps", type=int, default=10)
-    parser.add_argument("--kernels", nargs="+", default=["K1", "K3", "K5b",
-                                                         "K5Lb"],
+    parser.add_argument("--kernels", nargs="+",
+                        default=["K1", "K3", "K5f", "K5Lf", "K5b", "K5Lb"],
                         help="the kernels whose cases run")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -214,12 +277,20 @@ def main():
         libs += [other.decoding.LIFTED_BP_KERNEL,
                  other.decoding.LAYERED_BP_KERNEL, LIFTED_BP_KERNEL,
                  LAYERED_BP_KERNEL]
-    if {"K5b", "K5Lb"} & set(args.kernels):
+    if {"K5f", "K5Lf", "K5b", "K5Lb"} & set(args.kernels):
         libs += [other_lg.LIFTED_BP_GRAD_KERNEL,
                  other_lg.LAYERED_BP_GRAD_KERNEL, lg.LIFTED_BP_GRAD_KERNEL,
                  lg.LAYERED_BP_GRAD_KERNEL]
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda k: k.library(), libs))
+    # libs: groups of four, the other checkout's pair, then this tree's
+    for i in range(0, len(libs), 4):
+        for theirs, ours in zip(libs[i:i + 2], libs[i + 2:i + 4]):
+            a, b = ptxas_figures(theirs), ptxas_figures(ours)
+            for entry in sorted(set(a) | set(b)):
+                print(json.dumps({"library": ours.name, "entry": entry,
+                                  "other": a.get(entry),
+                                  "this": b.get(entry)}), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(4)
     inputs = {}
     with torch.no_grad():
@@ -237,6 +308,11 @@ def main():
                 inputs[shape] = (dec.lifted, other_lift,
                                  llrs(dec, batch, ebno_db, gen))
             lift, other_lift, x = inputs[shape]
+            if kernel in ("K5f", "K5Lf"):
+                print(json.dumps(tape_case(kernel, shape, lift, other_lift,
+                                           other_lg, x, args.reps)),
+                      flush=True)
+                continue
             if kernel in ("K5b", "K5Lb"):
                 print(json.dumps(grad_case(kernel, shape, lift, other_lift,
                                            other_lg, x, gen, args.reps)),

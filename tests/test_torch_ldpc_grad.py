@@ -24,6 +24,8 @@ and schedule once, and BP-5 runs only for layered min-sum and for the
 link (flooding boxplus): about 130 s for the file on one core.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -296,28 +298,13 @@ def test_pallas_only_knobs_raise_under_grad(knobs):
     assert out.shape == llr_int.shape
 
 
-def test_grad_plan_and_cuda_wrappers():
-    """The K5 plan of the BG2 k=100 code: edges numbered row by row, with
-    their columns, shifts and cyclic active-lane ranges; the CUDA
-    wrappers refuse a CPU tensor, and the kernel wrappers K1/K3 refuse
-    LLRs that require grad."""
+def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
+    """The tape kernels' wrappers and ``_check_llrs`` refuse a CPU tensor
+    (the plain pair is the CPU path), and the tape kernels refuse a code
+    whose edges are not numbered row by row (a row position of K1's and
+    K3's plans is an edge's index in the tapes)."""
     dec = LDPC5GDecoder(LDPC5GEncoder(100, 200))
     lifted = dec.lifted
-    plan = lg.grad_plan(lifted)
-    n_arrays = len(lg.GRAD_PLAN_ARRAYS)
-    offsets = plan[:n_arrays]
-    arrays = [plan[a:b] for a, b in zip(offsets, list(offsets[1:])
-                                        + [plan.size])]
-    n_e = len(lifted._edges)
-    row_ptr, cols, shifts, ranges, col_ptr, col_ids = arrays
-    assert row_ptr[-1] == n_e and col_ptr[-1] == n_e
-    assert cols.tolist() == [c for _, c, _ in lifted._edges]
-    assert shifts.tolist() == [s for _, _, s in lifted._edges]
-    for e, rg in enumerate(ranges):
-        lo, length = rg & 0xffff, rg >> 16
-        act = (np.arange(lifted._z) - lo) % lifted._z < length
-        assert np.array_equal(act, lifted._edge_mask[e] > 0)
-    assert sorted(col_ids.tolist()) == list(range(n_e))
     x = torch.zeros(2, lifted._num_vns)
     for fn in (lg.flooding_tape_cuda, lg.layered_tape_cuda):
         with pytest.raises(ValueError, match="CUDA"):
@@ -326,6 +313,15 @@ def test_grad_plan_and_cuda_wrappers():
                                                         LIFTED_BP_KERNEL)
     with pytest.raises(ValueError, match="CUDA"):
         _check_llrs(LIFTED_BP_KERNEL, lifted, x, 2, None, "log1p")
+    swapped = copy.copy(lifted)
+    rows = dict(lifted._row_edges)
+    rows[0], rows[1] = rows[1], rows[0]
+    swapped._row_edges = rows
+    for fn, name in ((lg.flooding_tape_cuda, "K5f"),
+                     (lg.layered_tape_cuda, "K5Lf")):
+        with pytest.raises(ValueError, match=f"{name} takes edges numbered "
+                                             "row by row"):
+            fn(swapped, x, 2)
 
 
 @pytest.mark.parametrize("layered", [False, True])

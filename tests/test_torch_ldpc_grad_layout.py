@@ -6,7 +6,10 @@ that run here, for every code that ``chip_smoke.py``'s phases 36-37 and
 its shared memory, every edge lane has one owner, the register edges are
 the degree-1 columns the kernel takes them for, and a code no layout
 takes raises. K5b's schedule is also run here from its plan alone
-(``_emulate_k5b``) and held to the plain reverse."""
+(``_emulate_k5b``) and held to the plain reverse, and the tape kernels'
+schedules, K1's and K3's with the tape stores, from K1's and K3's plans
+(``_emulate_k5f``, ``_emulate_k5lf``), held to the plain tape forward
+bit for bit."""
 
 import copy
 
@@ -334,3 +337,196 @@ def test_k5b_schedule_matches_plain_reverse(k, n, cn_update, num_iter):
     assert scale > 0
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
                                atol=1e-6 * scale)
+
+
+def _plan_masks(ranges, z):
+    """Per row position, the lane mask of its cyclic active-lane range
+    (lo, length) as the kernels test it, and whether all lanes are on."""
+    lanes = torch.arange(z)
+    masks = [((lanes - int(lo)) % z < int(n)).to(torch.float32)
+             for lo, n in ranges]
+    return masks, [bool(m.all()) for m in masks]
+
+
+def _emulate_k5f(lifted, llr_int, num_iter):
+    """K5f's schedule on the CPU from K1's plan alone (and the code's Z,
+    clipping and CN rule): K1's init of the slots from the VN side, then
+    per iteration the CN units of the rows with a register edge (each with
+    its degree-1 column's VN update), of the other rows, and the VN phase,
+    every lane of a unit at once; each CN unit stores the v2c it reads to
+    the tape at its row position. Returns (marginals, tape, the stores of
+    each tape row)."""
+    layout = lifted.k1_layout()
+    arr = _k1_arrays(lifted, layout)
+    z, n_cols, n_e = lifted._z, lifted._n_col_blocks, len(lifted._edges)
+    clip = lifted._llr_max
+    batch = llr_int.shape[0]
+    llr = F.pad(llr_int, (0, n_cols * z - lifted._num_vns)).reshape(
+        batch, n_cols, z)
+    row_ptr, col_ptr = arr["row_ptr"], arr["col_ptr"]
+    masks, full = _plan_masks([(r & 0xffff, r >> 16)
+                               for r in arr["row_range"]], z)
+    tape = torch.full((num_iter, n_e, batch, z), float("nan"))
+    stores = torch.zeros(num_iter, n_e, dtype=torch.int64)
+    out = llr.clone()  # 0 iterations: the LLRs
+
+    def roll(x, s):
+        return torch.roll(x, int(s), -1)
+
+    def clamp(x):
+        return torch.clamp(x, -clip, clip)
+
+    slots = {}  # CN-aligned v2c, then c2v, by plan slot id
+    for c in arr["vn_cols"]:
+        for p in range(col_ptr[c], col_ptr[c + 1]):
+            slots[int(arr["col_slot"][p])] = roll(clamp(llr[:, c]),
+                                                  -arr["col_shift"][p])
+    reg = [roll(clamp(llr[:, c]), -s)
+           for c, s in zip(arr["reg_col"], arr["reg_shift"])]
+
+    def cn_unit(t, r, reg_pos, reg_v2c):
+        eids = list(range(row_ptr[r], row_ptr[r + 1]))
+        v2c = [None] * n_e
+        for k, p in enumerate(eids):
+            v2c[p] = reg_v2c if k == reg_pos else \
+                slots[int(arr["row_slot"][p])]
+            tape[t, p] = v2c[p]
+            stores[t, p] += 1
+        c2v = _lifted_cn_phase(v2c, masks, {r: eids}, n_e, clip,
+                               lifted._offset, lifted._cn_mode, full)
+        for k, p in enumerate(eids):
+            if k != reg_pos:
+                slots[int(arr["row_slot"][p])] = c2v[p]
+        return c2v[eids[reg_pos]] if reg_pos >= 0 else None
+
+    for t in range(num_iter):
+        last = t == num_iter - 1
+        for i, r in enumerate(arr["reg_rows"]):
+            s, c = arr["reg_shift"][i], arr["reg_col"][i]
+            x = roll(cn_unit(t, r, arr["reg_pos"][i], reg[i]), s)
+            tot = llr[:, c] + x
+            if last:
+                out[:, c] = clamp(tot)
+            reg[i] = roll(clamp(tot - x), -s)
+        for r in arr["plain_rows"]:
+            cn_unit(t, r, -1, None)
+        for c in arr["vn_cols"]:
+            ps = range(col_ptr[c], col_ptr[c + 1])
+            xs = [roll(slots[int(arr["col_slot"][p])], arr["col_shift"][p])
+                  for p in ps]
+            tot = llr[:, c]
+            for x in xs:
+                tot = tot + x
+            if last:
+                out[:, c] = clamp(tot)
+            for p, x in zip(ps, xs):
+                slots[int(arr["col_slot"][p])] = roll(clamp(tot - x),
+                                                      -arr["col_shift"][p])
+    return out.reshape(batch, -1)[:, :lifted._num_vns], tape, stores
+
+
+def _k3_arrays(lifted, layout):
+    """K3's plan by name: the int4 edge records by row position, the step
+    pointers into the rows and the row pointers into the positions."""
+    plan = layout.plan.astype(np.int64)
+    n_e, n_rows = len(lifted._edges), lifted._n_row_blocks
+    edge = plan[plan[0]:plan[0] + 4 * n_e].reshape(n_e, 4)
+    step_ptr = plan[plan[1]:plan[1] + len(layout.steps) + 1]
+    row_ptr = plan[plan[2]:plan[2] + n_rows + 1]
+    return edge, step_ptr, row_ptr
+
+
+def _emulate_k5lf(lifted, llr_int, num_iter):
+    """K5Lf's schedule on the CPU from K3's f32 layout and plan alone:
+    the lanes split into the layout's runs, one per block of the cluster;
+    when an iteration starts, each block stores its run of every column
+    of the posterior to tape_m; then the row steps, in each of which each
+    block takes its lanes of the step's edges (phase A: v2c from the
+    posterior and the slot's c2v_old, which goes to tape_c at the edge's
+    row position), the rows' check nodes (B) and the updates of the
+    posterior and the slots (C). Returns (marginals, tape_m, tape_c, the
+    stores of each element of tape_m and of tape_c)."""
+    layout = layered_bp_layout(lifted)
+    edge, step_ptr, row_ptr = _k3_arrays(lifted, layout)
+    z, n_cols, n_e = lifted._z, lifted._n_col_blocks, len(lifted._edges)
+    batch = llr_int.shape[0]
+    col, shift = edge[:, 0] // z, edge[:, 0] % z
+    assert (edge[:, 1] == z - shift).all()
+    masks, full = _plan_masks(edge[:, 2:], z)
+    post = F.pad(llr_int, (0, n_cols * z - lifted._num_vns)).reshape(
+        batch, n_cols, z).clone()
+    c2v = torch.zeros(n_e, batch, z)
+    tape_m = torch.full((num_iter, n_cols, batch, z), float("nan"))
+    tape_c = torch.full((num_iter, n_e, batch, z), float("nan"))
+    stores_m = torch.zeros(num_iter, n_cols, z, dtype=torch.int64)
+    stores_c = torch.zeros(num_iter, n_e, z, dtype=torch.int64)
+    runs = [torch.arange(b * layout.lanes, min(z, (b + 1) * layout.lanes))
+            for b in range(layout.cluster)]
+    for t in range(num_iter):
+        for gi in runs:
+            tape_m[t][:, :, gi] = post[:, :, gi].transpose(0, 1)
+            stores_m[t][:, gi] += 1
+        for s in range(len(layout.steps)):
+            r0, r1 = step_ptr[s], step_ptr[s + 1]
+            for gi in runs:
+                lane_masks = [m[gi] for m in masks]
+                v2c, old, vn = [None] * n_e, {}, {}
+                for p in range(row_ptr[r0], row_ptr[r1]):
+                    vn[p] = (gi + int(shift[p])) % z
+                    old[p] = c2v[p][:, gi]
+                    tape_c[t, p][:, gi] = old[p]
+                    stores_c[t, p, gi] += 1
+                    v2c[p] = post[:, col[p]][:, vn[p]] - old[p]
+                for r in range(r0, r1):
+                    eids = list(range(row_ptr[r], row_ptr[r + 1]))
+                    new = _lifted_cn_phase(
+                        v2c, lane_masks, {r: eids}, n_e, lifted._llr_max,
+                        lifted._offset, lifted._cn_mode, full)
+                    for p in eids:
+                        post[:, col[p], vn[p]] = post[:, col[p], vn[p]] + (
+                            new[p] - old[p])
+                        c2v[p][:, gi] = new[p]
+    marg = post.reshape(batch, -1)[:, :lifted._num_vns]
+    return marg, tape_m, tape_c, stores_m, stores_c
+
+
+def _grad_llrs(lifted, batch, seed):
+    rng = np.random.default_rng(seed)
+    return torch.tensor(3 * rng.normal(size=(batch, lifted._num_vns)) + 1,
+                        dtype=torch.float32)
+
+
+@pytest.mark.parametrize("cn_update", ["boxplus", "minsum"])
+@pytest.mark.parametrize("k,n", [(100, 200), (1024, 2048)])
+def test_k5f_schedule_matches_plain_tape_forward(k, n, cn_update):
+    """K5f runs K1's schedule from K1's plan and stores each v2c a CN unit
+    reads at its row position: the marginals and the tape of the plain
+    tape forward bit for bit, every tape row stored once per iteration."""
+    lifted = LDPC5GDecoder(LDPC5GEncoder(k, n), cn_update=cn_update).lifted
+    llr = _grad_llrs(lifted, 2, k)
+    for num_iter in (0, 3):
+        marg, tape, stores = _emulate_k5f(lifted, llr, num_iter)
+        want_marg, want_tape = lg.flooding_tape_forward(lifted, llr,
+                                                        num_iter)
+        assert (stores == 1).all()
+        assert torch.equal(marg, want_marg)
+        assert torch.equal(tape, want_tape)
+
+
+@pytest.mark.parametrize("cn_update", ["boxplus", "minsum"])
+@pytest.mark.parametrize("k,n", [(100, 200), (1024, 2048), (6144, 12288)])
+def test_k5lf_schedule_matches_plain_tape_forward(k, n, cn_update):
+    """K5Lf runs K3's row steps from K3's f32 layout and plan, each block
+    of the cluster on its lane run (n=12288: 2 blocks of 144 lanes): every
+    element of tape_m and tape_c is stored once, and the marginals and
+    both tapes are the plain tape forward's bit for bit."""
+    lifted = LDPC5GDecoder(LDPC5GEncoder(k, n), cn_update=cn_update).lifted
+    assert layered_bp_layout(lifted).cluster == (2 if n == 12288 else 1)
+    llr = _grad_llrs(lifted, 2, n)
+    for num_iter in (0, 2):
+        marg, tape_m, tape_c, stores_m, stores_c = _emulate_k5lf(
+            lifted, llr, num_iter)
+        want = lg.layered_tape_forward(lifted, llr, num_iter)
+        assert (stores_m == 1).all() and (stores_c == 1).all()
+        for got, ref in zip((marg, tape_m, tape_c), want):
+            assert torch.equal(got, ref)
