@@ -1,0 +1,11 @@
+"""detection.ms_per_iter: mean device milliseconds per MC iteration of the
+link's "detection" layer, between the CUDA events the link records at the
+start of this layer and of the next (``rec.mark`` in the link).
+"""
+
+
+def read(run):
+    times = run.stage_ms.get("detection")
+    if not times:
+        return None
+    return float(sum(times) / len(times))
