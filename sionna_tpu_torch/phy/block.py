@@ -61,6 +61,12 @@ class Block(Object, nn.Module):
     ``device`` places the block's buffers (and the tensors it creates,
     e.g. random bits) on that device, by default ``config.device`` (the
     card); ``.to(device)`` moves them later.
+
+    While a :class:`~sionna_tpu_torch.phy.utils.Profiler` is active, each
+    call (input casts included) is a span named after the block's class
+    (``type(self).__name__``), nested in the span the call was made in;
+    with none active, a call costs one check of
+    ``profiling.active`` more.
     """
 
     def __init__(self, precision=None, device=None):
@@ -95,6 +101,17 @@ class Block(Object, nn.Module):
         return v
 
     def __call__(self, *args, **kwargs):
-        args = [self._cast_input(a) for a in args]
-        kwargs = {k: self._cast_input(v) for k, v in kwargs.items()}
-        return super().__call__(*args, **kwargs)
+        tracer = profiling.active
+        if tracer is not None:
+            tracer.open(type(self).__name__)
+        try:
+            args = [self._cast_input(a) for a in args]
+            kwargs = {k: self._cast_input(v) for k, v in kwargs.items()}
+            return super().__call__(*args, **kwargs)
+        finally:
+            if tracer is not None:
+                tracer.close()
+
+
+# Imported last: ``phy.utils`` imports ``Block``.
+from .utils import profiling  # noqa: E402 pylint: disable=C0413

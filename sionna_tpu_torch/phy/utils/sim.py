@@ -22,15 +22,19 @@ decisions.
 
 import os
 import time
+from contextlib import nullcontext
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..config import config
+from . import profiling
 from .misc import hard_decisions
 
 __all__ = ["sim_ber", "init_multihost"]
+
+_NO_SPAN = nullcontext()
 
 _TORCHRUN = ("launch one process per GPU with torchrun --nproc_per_node=N, "
              "call sionna_tpu_torch.phy.utils.init_multihost() in each and "
@@ -135,9 +139,18 @@ def sim_ber(mc_fun, ebno_dbs, batch_size, max_mc_iter,
     count. An unreadable or mismatching file means a fresh start.
 
     ``profiler``: optional
-    :class:`~sionna_tpu_torch.phy.utils.Profiler`; each chunk runs in
-    its phase "compile" (the first chunk of each length) or "mc_chunk",
-    and reading the counters syncs the device inside the phase.
+    :class:`~sionna_tpu_torch.phy.utils.Profiler`, made the process's
+    active one for the sweep; without it, the one active when each span
+    opens, if any. With a profiler, each chunk is a span "compile" (the
+    first chunk of each length) or "mc_chunk", holding in turn: one
+    "sim_ber.iter" span per ``mc_fun`` call and its error counting (its
+    ``iteration`` the call's index in the sweep, which the blocks' spans
+    inside inherit), "sim_ber.readback" (the counters' ``tolist()``,
+    which syncs the device, and the ``all_reduce`` of a group) and
+    "sim_ber.bookkeeping" (the counters' sums, the checkpoint, the
+    stopping tests and the ``callback``). Each point ends in a
+    "sim_ber.bookkeeping" span of its own (the checkpoint, the printed
+    line, the sweep's stopping tests).
 
     ``distribute``: None (this process alone), ``"multihost"`` (the
     initialized ``torch.distributed`` group, two or more ranks; see
@@ -218,97 +231,123 @@ def sim_ber(mc_fun, ebno_dbs, batch_size, max_mc_iter,
               "    status")
         print("-" * 126)
 
+    def span(name, iteration=None):
+        """A span of ``profiler``, else of the profiler active now (one
+        made active in mid-sweep sees the sweep's next spans), else
+        none."""
+        tracer = profiler if profiler is not None else profiling.active
+        return _NO_SPAN if tracer is None else tracer.phase(name, iteration)
+
+    iteration = 0  # index of the next mc_fun call in the sweep
+
     def run_chunk(ebno_db, n):
         """n MC iterations; returns the four counters (summed over the
         ranks), read once."""
+        nonlocal iteration
         errs = None
         nb = nblk = 0
         for _ in range(n):
-            b, b_hat = mc_fun(batch_size, ebno_db)
-            if soft_estimates:
-                b_hat = hard_decisions(b_hat)
-            ne = b != b_hat
-            e = torch.stack([ne.sum(), ne.any(dim=-1).sum()])
-            errs = e if errs is None else errs + e
-            nb += b.numel()
-            nblk += b.numel() // b.shape[-1]
-        if world is None:
-            return errs.tolist() + [nb, nblk]
-        counts = torch.cat([errs, torch.tensor([nb, nblk],
-                                               device=errs.device)])
-        if dist.get_backend() != "nccl":
-            counts = counts.cpu()
-        dist.all_reduce(counts)
-        return counts.tolist()
+            with span("sim_ber.iter", iteration):
+                b, b_hat = mc_fun(batch_size, ebno_db)
+                if soft_estimates:
+                    b_hat = hard_decisions(b_hat)
+                ne = b != b_hat
+                e = torch.stack([ne.sum(), ne.any(dim=-1).sum()])
+                errs = e if errs is None else errs + e
+                nb += b.numel()
+                nblk += b.numel() // b.shape[-1]
+            iteration += 1
+        with span("sim_ber.readback"):
+            if world is None:
+                return errs.tolist() + [nb, nblk]
+            counts = torch.cat([errs, torch.tensor([nb, nblk],
+                                                   device=errs.device)])
+            if dist.get_backend() != "nccl":
+                counts = counts.cpu()
+            dist.all_reduce(counts)
+            return counts.tolist()
+
+    def end_chunk(i, counts):
+        """Adds a chunk's counters to point ``i``'s, writes the
+        checkpoint, runs the stopping tests and the callback; returns
+        whether the point is done."""
+        be, ble, nb, nblk = counts
+        bit_errors[i] += be
+        block_errors[i] += ble
+        nb_bits[i] += nb
+        nb_blocks[i] += nblk
+        save_checkpoint()
+        done = False
+        if (num_target_bit_errors is not None
+                and bit_errors[i] >= num_target_bit_errors):
+            status[i] = "reached target bit errors"
+            done = True
+        if (num_target_block_errors is not None
+                and block_errors[i] >= num_target_block_errors):
+            status[i] = "reached target block errors"
+            done = True
+        if callback is not None:
+            cb_ret = callback(int(iters_state[i]), i, ebno_dbs, bit_errors,
+                              block_errors, nb_bits, nb_blocks)
+            if cb_ret is True:
+                status[i] = "callback stop"
+                done = True
+        return done
+
+    def end_point(i, t0):
+        """Closes point ``i`` (status, runtime, checkpoint, printed
+        line); returns whether the sweep stops after it."""
+        if not status[i]:
+            status[i] = "reached max iter"
+        runtimes[i] = time.perf_counter() - t0
+        save_checkpoint()
+
+        ber_i = bit_errors[i] / max(nb_bits[i], 1)
+        bler_i = block_errors[i] / max(nb_blocks[i], 1)
+        if verbose:
+            print(f"{ebno_dbs[i]:9.3f} | {ber_i:9.3e} | {bler_i:9.3e} |"
+                  f" {bit_errors[i]:11d} | {nb_bits[i]:11d} |"
+                  f" {block_errors[i]:12d} | {nb_blocks[i]:11d} |"
+                  f" {runtimes[i]:11.2f} | {status[i]}")
+
+        # Sweep-level early stopping (monotonic SNR assumption)
+        stop = False
+        if early_stop and block_errors[i] == 0:
+            stop = True
+            if verbose:
+                print(f"\nSimulation stopped as no error occurred "
+                      f"@ EbNo = {ebno_dbs[i]:.1f} dB.\n")
+        if target_ber is not None and ber_i < target_ber:
+            stop = True
+        if target_bler is not None and bler_i < target_bler:
+            stop = True
+        return stop
 
     stop_sweep = False
     interrupted = False
-    compiled = set()  # chunk lengths run once (the "compile" phase)
+    compiled = set()  # chunk lengths run once (the "compile" span)
     try:
-        for i in range(num_points):
-            if status[i] not in ("", "interrupted"):
-                continue  # already completed (resumed sweep)
-            if stop_sweep:
-                status[i] = "not simulated"
-                continue
-            t0 = time.perf_counter()
-            iters_done = int(iters_state[i])
-            status[i] = ""
-            point_done = False
-            while iters_done < max_mc_iter and not point_done:
-                n = min(device_iters, max_mc_iter - iters_done)
-                if profiler is not None:
+        with profiler if profiler is not None else nullcontext():
+            for i in range(num_points):
+                if status[i] not in ("", "interrupted"):
+                    continue  # already completed (resumed sweep)
+                if stop_sweep:
+                    status[i] = "not simulated"
+                    continue
+                t0 = time.perf_counter()
+                status[i] = ""
+                point_done = False
+                while iters_state[i] < max_mc_iter and not point_done:
+                    n = int(min(device_iters, max_mc_iter - iters_state[i]))
                     name = "mc_chunk" if n in compiled else "compile"
                     compiled.add(n)
-                    with profiler.phase(name):
-                        be, ble, nb, nblk = run_chunk(float(ebno_dbs[i]), n)
-                else:
-                    be, ble, nb, nblk = run_chunk(float(ebno_dbs[i]), n)
-                bit_errors[i] += be
-                block_errors[i] += ble
-                nb_bits[i] += nb
-                nb_blocks[i] += nblk
-                iters_done += n
-                iters_state[i] = iters_done
-                save_checkpoint()
-
-                if (num_target_bit_errors is not None
-                        and bit_errors[i] >= num_target_bit_errors):
-                    status[i] = "reached target bit errors"
-                    point_done = True
-                if (num_target_block_errors is not None
-                        and block_errors[i] >= num_target_block_errors):
-                    status[i] = "reached target block errors"
-                    point_done = True
-                if callback is not None:
-                    cb_ret = callback(iters_done, i, ebno_dbs, bit_errors,
-                                      block_errors, nb_bits, nb_blocks)
-                    if cb_ret is True:
-                        status[i] = "callback stop"
-                        point_done = True
-            if not status[i]:
-                status[i] = "reached max iter"
-            runtimes[i] = time.perf_counter() - t0
-            save_checkpoint()
-
-            ber_i = bit_errors[i] / max(nb_bits[i], 1)
-            bler_i = block_errors[i] / max(nb_blocks[i], 1)
-            if verbose:
-                print(f"{ebno_dbs[i]:9.3f} | {ber_i:9.3e} | {bler_i:9.3e} |"
-                      f" {bit_errors[i]:11d} | {nb_bits[i]:11d} |"
-                      f" {block_errors[i]:12d} | {nb_blocks[i]:11d} |"
-                      f" {runtimes[i]:11.2f} | {status[i]}")
-
-            # Sweep-level early stopping (monotonic SNR assumption)
-            if early_stop and block_errors[i] == 0:
-                stop_sweep = True
-                if verbose:
-                    print(f"\nSimulation stopped as no error occurred "
-                          f"@ EbNo = {ebno_dbs[i]:.1f} dB.\n")
-            if target_ber is not None and ber_i < target_ber:
-                stop_sweep = True
-            if target_bler is not None and bler_i < target_bler:
-                stop_sweep = True
+                    with span(name):
+                        counts = run_chunk(float(ebno_dbs[i]), n)
+                        with span("sim_ber.bookkeeping"):
+                            iters_state[i] += n
+                            point_done = end_chunk(i, counts)
+                with span("sim_ber.bookkeeping"):
+                    stop_sweep = end_point(i, t0)
     except KeyboardInterrupt:
         interrupted = True
         for j in range(num_points):

@@ -318,8 +318,8 @@ def test_sim_ber_interrupt_marks_points(tmp_path):
 
 
 def test_profiler_phases(tmp_path):
-    """As tests/test_utils.py holds JAX's Profiler; with ``trace_dir``
-    it writes a Chrome trace holding the phases."""
+    """As tests/test_utils.py holds JAX's Profiler; a ``torch.profiler``
+    trace taken around an active Profiler holds the phase."""
     prof = Profiler()
     with prof.phase("a"):
         time.sleep(0.01)
@@ -336,16 +336,21 @@ def test_profiler_phases(tmp_path):
     assert prof.as_dict()["b"]["count"] == 1
     prof.reset()
     assert prof.summary() == "(no phases recorded)"
-    with Profiler(trace_dir=str(tmp_path / "trace")) as prof:
-        with prof.phase("matmul_phase"):
-            torch.ones(8, 8) @ torch.ones(8, 8)
-    trace = (tmp_path / "trace" / "trace.json").read_text()
-    assert "matmul_phase" in trace and prof.counts == {"matmul_phase": 1}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as tp:
+        with Profiler() as prof:
+            with prof.phase("matmul_phase"):
+                torch.ones(8, 8) @ torch.ones(8, 8)
+    path = tmp_path / "trace.json"
+    tp.export_chrome_trace(str(path))
+    assert "matmul_phase" in path.read_text()
+    assert prof.counts == {"matmul_phase": 1}
 
 
 def test_sim_ber_profiler_integration():
     """sim_ber records "compile" (the first chunk of each length) and
-    "mc_chunk" phases, as the JAX package's does on the same sweep."""
+    "mc_chunk" phases, as the JAX package's does on the same sweep (the
+    port records its MC iterations, readbacks and blocks besides)."""
     tprof, jprof = Profiler(), jutils.Profiler()
     ber, _ = sim_ber(_uncoded_model(2), [0.0, 2.0], batch_size=64,
                      max_mc_iter=4, verbose=False, early_stop=False,
@@ -357,6 +362,8 @@ def test_sim_ber_profiler_integration():
 
     jutils.sim_ber(jmc, [0.0, 2.0], batch_size=64, max_mc_iter=4,
                    verbose=False, early_stop=False, profiler=jprof)
-    assert tprof.counts == jprof.counts
+    chunks = ("compile", "mc_chunk")
+    assert {k: tprof.counts[k] for k in chunks} == \
+        {k: jprof.counts[k] for k in chunks}
     assert tprof.counts["compile"] == 1 and tprof.counts["mc_chunk"] >= 1
     assert np.all(ber.numpy() > 0)
