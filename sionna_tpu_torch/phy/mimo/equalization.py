@@ -3,7 +3,8 @@ the LMMSE, ZF and MF equalizers; the JAX package's plane functions are
 TPU layout work and are left out).
 
 Cholesky-based: two triangular solves per resource element, unrolled
-for small matrices (see ``utils.linalg``).
+for small matrices (see ``utils.linalg``). While a ``Profiler`` is
+active, each call of an equalizer is a span of its name.
 """
 
 import torch
@@ -11,6 +12,7 @@ import torch
 from ..config import config, dtypes
 from ..utils.linalg import _adjoint, _matmul, batched_cholesky, \
     cholesky_solve, matrix_pinv
+from ..utils.profiling import traced
 from .utils import whiten_channel
 
 __all__ = ["lmmse_matrix", "lmmse_equalizer", "zf_equalizer",
@@ -36,6 +38,7 @@ def lmmse_matrix(h, s=None, precision=None):
     return cholesky_solve(chol, _adjoint(h))
 
 
+@traced("lmmse_equalizer")
 def lmmse_equalizer(y, h, s, whiten_interference=True, precision=None):
     """LMMSE equalization: returns (x_hat, no_eff) with the unbiased
     diag(GH)^{-1} scaling."""
@@ -57,6 +60,7 @@ def lmmse_equalizer(y, h, s, whiten_interference=True, precision=None):
     return x_hat, no_eff
 
 
+@traced("zf_equalizer")
 def zf_equalizer(y, h, s, precision=None):
     """Zero-forcing equalization, G = (H^H H)^{-1} H^H: returns (x_hat,
     no_eff) with no_eff = diag(G S G^H)."""
@@ -71,6 +75,7 @@ def zf_equalizer(y, h, s, precision=None):
     return x_hat, no_eff
 
 
+@traced("mf_equalizer")
 def mf_equalizer(y, h, s, precision=None):
     """Matched-filter equalization, G = diag(H^H H)^{-1} H^H: returns
     (x_hat, no_eff) with no_eff = |diag((I - GH)(I - GH)^H + G S G^H)|."""

@@ -8,16 +8,26 @@ arithmetic, as in the JAX package: a batched library routine on
 millions of tiny matrices is slow on a GPU as on a TPU (the flagship's
 LMMSE stage at batch 2048 took 1.8 ms with the unrolled product and
 36.3 ms with ``torch.matmul`` on an H100 at 700 W, same outputs). Above
-``_SMALL_M`` the ``torch.linalg`` routines and ``torch.matmul`` are used.
+``_SMALL_M`` the ``torch.linalg`` routines and ``torch.matmul`` are used,
+each call a ``linalg.batched`` span while a ``Profiler`` is active.
 """
 
 import torch
+
+from .profiling import traced
 
 __all__ = ["small_cholesky", "batched_cholesky", "solve_triangular_lower",
            "cholesky_solve", "inv_cholesky", "matrix_pinv"]
 
 # Largest trailing dimension handled by the unrolled versions.
 _SMALL_M = 4
+
+
+# The library routines of the branch above ``_SMALL_M``.
+_lib_matmul = traced("linalg.batched")(torch.matmul)
+_lib_cholesky = traced("linalg.batched")(torch.linalg.cholesky)
+_lib_solve_triangular = traced("linalg.batched")(
+    torch.linalg.solve_triangular)
 
 
 def _stack_rows(rows):
@@ -77,9 +87,13 @@ def _adjoint(x):
 
 def _matmul(a, b):
     """[..., m, k] @ [..., k, n] with broadcast batch dims; unrolled
-    over k for 1 <= k <= 4, ``torch.matmul`` otherwise."""
+    over k for 1 <= k <= 4, ``torch.matmul`` otherwise (k = 0, the
+    zeros of an empty sum such as a single stream's interference
+    covariance, is no ``linalg.batched`` span)."""
     k = a.shape[-1]
-    if not 1 <= k <= _SMALL_M:
+    if k > _SMALL_M:
+        return _lib_matmul(a, b)
+    if k == 0:
         return torch.matmul(a, b)
     out = a[..., :, 0:1] * b[..., 0:1, :]
     for p in range(1, k):
@@ -92,22 +106,22 @@ def batched_cholesky(a):
     for m <= 4, ``torch.linalg.cholesky`` above."""
     if a.shape[-1] <= _SMALL_M:
         return small_cholesky(a)
-    return torch.linalg.cholesky(a)
+    return _lib_cholesky(a)
 
 
 def solve_triangular_lower(l, b):
     """Solves L y = b with L lower-triangular, [..., m, k] RHS."""
     if l.shape[-1] <= _SMALL_M:
         return _small_solve_lower(l, b)
-    return torch.linalg.solve_triangular(l, b, upper=False)
+    return _lib_solve_triangular(l, b, upper=False)
 
 
 def cholesky_solve(chol, b):
     """Solves A x = b given the lower Cholesky factor of A."""
     if chol.shape[-1] <= _SMALL_M:
         return _small_solve_upper_adj(chol, _small_solve_lower(chol, b))
-    y = torch.linalg.solve_triangular(chol, b, upper=False)
-    return torch.linalg.solve_triangular(_adjoint(chol), y, upper=True)
+    y = _lib_solve_triangular(chol, b, upper=False)
+    return _lib_solve_triangular(_adjoint(chol), y, upper=True)
 
 
 def inv_cholesky(tensor):

@@ -20,6 +20,12 @@ opens a span of the caller's own, active or not:
     print(prof.summary())         # time and count per span name
     prof.spans()                  # every span, in the order opened
 
+A function decorated with :func:`traced` is a span of its own, as a
+block is: the MIMO equalizers (``lmmse_equalizer``, ``zf_equalizer``,
+``mf_equalizer``) and the library branch of ``linalg``'s helpers for
+dimensions above four (``linalg.batched``, whose count is the number of
+factorisations, solves and products that left the unrolled path).
+
 While a ``torch.profiler`` records, each span also opens a
 ``torch.profiler.record_function`` range of its name, so a
 ``torch.profiler`` run around an active profiler shows the spans on its
@@ -42,13 +48,14 @@ first range of a process or of a trace opens slower). Spans are
 recorded from one thread.
 """
 
+import functools
 import time
 from collections import namedtuple
 from contextlib import contextmanager
 
 import torch
 
-__all__ = ["Profiler", "Span"]
+__all__ = ["Profiler", "Span", "traced"]
 
 # The process's active Profiler, or None (read by ``Block.__call__`` and
 # ``sim_ber``; set by ``Profiler.__enter__`` and ``__exit__``).
@@ -60,6 +67,25 @@ was opened in (in ``Profiler.spans()``) or None; ``iteration`` the MC
 iteration it belongs to (``sim_ber``'s index of the ``mc_fun`` call,
 inherited from the parent) or None; ``start_ns`` and ``end_ns`` are
 ``time.time_ns()`` (``end_ns`` None while the span is open)."""
+
+
+def traced(name):
+    """Decorator: while a profiler is active, each call of the function
+    is a span ``name``; with none active, a call costs one check of
+    ``active`` more, as a ``Block`` call does."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            tracer = active
+            if tracer is None:
+                return fn(*args, **kwargs)
+            tracer.open(name)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                tracer.close()
+        return call
+    return wrap
 
 
 class Profiler:

@@ -1,11 +1,16 @@
 """The port's spans (``sionna_tpu_torch.phy.utils.profiling``): a span's
 parent, MC iteration and nesting; activation; ``Block`` calls with and
 without an active ``Profiler``; ``sim_ber``'s spans and their cover of
-the sweep; the spans' clock against a ``torch.profiler`` trace."""
+the sweep; the spans' clock against a ``torch.profiler`` trace; the
+equalizers' spans and ``linalg.batched``, the library branch of the
+linear-algebra helpers."""
 
 import gc
+import importlib.util
 import json
+import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -330,3 +335,96 @@ def test_span_clock_matches_the_profiler_trace(tmp_path):
         if max(gaps) < 50_000:
             break
     assert min(tries) < 50_000, tries
+
+
+def _flat_mimo_link():
+    """The benchmark's 4 x 16 flat-fading MIMO link
+    (``benchmark/configs/flat_mimo_4x16.py``) on the CPU, with a recorder
+    that marks and keeps nothing."""
+    root = Path(__file__).resolve().parents[1]
+    if str(root / "benchmark") not in sys.path:
+        sys.path.append(str(root / "benchmark"))
+    path = root / "benchmark" / "configs" / "flat_mimo_4x16.py"
+    spec = importlib.util.spec_from_file_location("flat_mimo_4x16", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+
+    class Idle:
+        def mark(self, name):
+            pass
+
+        def keep(self, **tensors):
+            pass
+
+    cfg = json.loads(path.with_suffix(".json").read_text())
+    return mod.build(cfg, {}, torch.device("cpu"), Idle())
+
+
+def test_flat_mimo_link_records_lmmse_and_linalg_spans():
+    """One MC iteration of the 4 x 16 link under an active Profiler: one
+    ``lmmse_equalizer`` span inside ``sim_ber.iter``, and its 16 x 16
+    whitening and 16-long products on the library branch, each a
+    ``linalg.batched`` span inside it."""
+    link = _flat_mimo_link()
+    with Profiler() as prof:
+        sim_ber(link, [3.5], 1, max_mc_iter=1, device_iters=1,
+                early_stop=False, verbose=False)
+    spans = prof.spans()
+    (eq,) = [i for i, s in enumerate(spans) if s.name == "lmmse_equalizer"]
+    assert spans[spans[eq].parent].name == "sim_ber.iter"
+    assert spans[eq].iteration == 0
+    batched = [s for s in spans if s.name == "linalg.batched"]
+    assert batched and all(s.parent == eq for s in batched)
+    assert prof.counts["linalg.batched"] == len(batched)
+
+
+def test_siso_lmmse_equalizer_block_stays_unrolled():
+    """The flagship's 1 x 1 ``LMMSEEqualizer``: its ``lmmse_equalizer``
+    span nested in the block's, and no ``linalg.batched`` span (every
+    system fits the unrolled helpers)."""
+    from sionna_tpu_torch.phy.mimo import StreamManagement
+    from sionna_tpu_torch.phy.ofdm import LMMSEEqualizer, ResourceGrid
+    rg = ResourceGrid(num_ofdm_symbols=14, fft_size=64,
+                      subcarrier_spacing=30e3, num_tx=1,
+                      num_streams_per_tx=1, pilot_pattern="kronecker",
+                      pilot_ofdm_symbol_indices=[2, 11])
+    equ = LMMSEEqualizer(rg, StreamManagement(np.array([[1]]), 1))
+    g = torch.Generator().manual_seed(3)
+    y = torch.randn(2, 1, 1, 14, 64, dtype=torch.complex64, generator=g)
+    h = torch.randn(2, 1, 1, 1, 1, 14, 64, dtype=torch.complex64,
+                    generator=g)
+    with Profiler() as prof:
+        x_hat, _ = equ(y, h, torch.full((2, 1, 1, 1, 1, 14, 64), 0.01),
+                       torch.tensor(0.1))
+    assert x_hat.shape == (2, 1, 1, rg.num_data_symbols)
+    spans = prof.spans()
+    assert spans[0].name == "LMMSEEqualizer"
+    (eq,) = [s for s in spans if s.name == "lmmse_equalizer"]
+    assert eq.parent == 0
+    assert "linalg.batched" not in prof.counts
+
+
+def test_equalizers_record_nothing_without_an_active_profiler(tmp_path):
+    """With no Profiler active, the equalizers and the library branch
+    record no span and open no range, and give what they give under
+    one."""
+    from sionna_tpu_torch.phy.mimo import (lmmse_equalizer, mf_equalizer,
+                                           zf_equalizer)
+    g = torch.Generator().manual_seed(5)
+    y = torch.randn(32, 16, dtype=torch.complex64, generator=g)
+    h = torch.randn(32, 16, 4, dtype=torch.complex64, generator=g)
+    s = 0.1 * torch.eye(16, dtype=torch.complex64)
+    fns = (lmmse_equalizer, zf_equalizer, mf_equalizer)
+    idle = Profiler()  # made, never activated
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as tp:
+        off = [fn(y, h, s) for fn in fns]
+    assert idle.spans() == []
+    _, events = _trace_events(tp, tmp_path / "trace.json")
+    assert not [e for e in events if e.get("cat") == "user_annotation"]
+    with Profiler() as prof:
+        on = [fn(y, h, s) for fn in fns]
+    assert [s.name for s in prof.spans() if s.parent is None] == [
+        "lmmse_equalizer", "zf_equalizer", "mf_equalizer"]
+    for a, b in zip(off, on):
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
