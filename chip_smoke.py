@@ -183,7 +183,9 @@ them: the JAX package's NR blocks are NumPy and XLA code; their
     ``LDPC5GDecoder`` BP-20 on K1) through ``sim_ber`` at batch 4096 and
     3.5 dB, and ``BinarySymmetricChannel(return_llrs=True)`` into the
     same decoder at pb 0.085: BLER bands from the JAX links on the CPU,
-    one K1 launch per decoder call, every tensor on ``cuda:0``; the MIMO
+    one K1 launch per decoder call, one launch of the whitened-LMMSE
+    kernel per MC iteration of the MIMO link (none in the BSC link's),
+    every tensor on ``cuda:0``; the MIMO
     link's ms per stage (CUDA events), per MC iteration, Mbit/s and peak
     memory; ``PerColumnModel``, Rayleigh block fading and a
     ``CIRDataset`` of its draws into ``OFDMChannel`` against themselves on
@@ -322,7 +324,15 @@ render traces its rays through phase 30's intersection code.
     against its plain version (``lin_interp_plain``) within a few f32
     roundings of the taps' magnitudes, ms per call of both in turns and
     of the dense complex64 operator's einsum (the port's path before the
-    kernel; ``library_ms``), and the kernel's share of its byte bound.
+    kernel; ``library_ms``), and the kernel's share of its byte bound;
+39. the whitened-LMMSE kernel (``csrc/lmmse_whitened.cu``) on one MC
+    iteration's own channel uses of phase 26's MIMO link (N = 1,048,576,
+    M = 16, K = 4, S = N0 I): ptxas's report, one launch and no host sync
+    per ``lmmse_equalizer`` call, the kernel against its plain path
+    (``lmmse_equalizer_plain``, the library calls it replaced) over every
+    channel use and both against a complex128 evaluation on every 97th,
+    within ``LMMSE_RTOL`` of the largest value, ms per call of both in
+    turns, and the kernel's share of its byte bound.
 
 Phases 15 and 16 run in a process of their own; each link is held to
 its BLER band from a JAX run of the same link
@@ -388,6 +398,8 @@ from sionna_tpu_torch.phy.fec.polar import Polar5GDecoder, Polar5GEncoder
 from sionna_tpu_torch.phy.fec.turbo import TurboDecoder, TurboEncoder
 from sionna_tpu_torch.phy.fec.utils import load_parity_check_examples, pcm2gm
 from sionna_tpu_torch.phy.mimo import StreamManagement, lmmse_equalizer
+from sionna_tpu_torch.phy.mimo.equalization import (
+    LMMSE_WHITENED_KERNEL, lmmse_equalizer_plain, lmmse_whitened_cuda)
 from sionna_tpu_torch.phy.ofdm import (EPDetector, KBestDetector,
                                        LinearDetector, LMMSEEqualizer,
                                        LMMSEInterpolator, LSChannelEstimator,
@@ -620,6 +632,11 @@ FLAT_JAX = {"mimo": (47721, 131072), "bsc": (36161, 131072)}
 # The blocks on the card against the same blocks on the CPU, of the
 # largest magnitude: f32 products summed in other orders
 FLAT_CPU_RTOL = 1e-5
+# Phase 39: the whitened-LMMSE kernel and its plain path, each against a
+# complex128 evaluation, and the two against each other, of the largest
+# value (tests/test_torch_lmmse_card.py's FLAT_RTOL: float32 whitening and
+# a 4 x 4 Cholesky solve over channels of condition number up to about 20)
+LMMSE_RTOL = 4e-5
 # Pulse shaping (docs/tutorials/10_pulse_shaping.md): the noiseless
 # cascade's error floor, the ISI of an RRC truncated to 32 symbols (6.2e-3
 # on the port on the CPU), and the empirical ACLR of the shaped
@@ -1577,7 +1594,7 @@ def card_line():
 
 
 def reset_launches():
-    for kern in KERNELS + (LIN_INTERP_KERNEL,):
+    for kern in KERNELS + (LIN_INTERP_KERNEL, LMMSE_WHITENED_KERNEL):
         kern.reset()
 
 
@@ -3460,27 +3477,32 @@ class FlatLink:
         self.calls += 1
         self.devices.update(str(t.device) for t in (*args, out))
 
-    def stages(self, batch_size, ebno_db, mark=lambda name: None):
-        """One MC iteration of the MIMO link, ``mark``ing the end of each
-        stage: (info bits, decisions) [batch, 4, 512]."""
+    def channel_uses(self, batch_size, ebno_db, mark=lambda name: None):
+        """The MIMO link up to the equalizer: (info bits [batch, 4, 512],
+        symbols' shape, y [N, 16], h [N, 16, 4], S = N0 I [16, 16]), N =
+        batch x 256 channel uses."""
         c = FLAT
         b = self.src([batch_size, c["num_tx"], c["k"]])
         x = self.mapper(self.enc(b))
         mark("source, encode, map")
-        shape = x.shape
         no = ebnodb2no(ebno_db, c["nbps"], c["k"] / c["n"]).to(self.dev) \
             * c["num_rx"] ** 0.5
         y, h = self.channel(x.reshape(-1, c["num_tx"]), no)
         mark("flat fading (Kronecker), AWGN")
-        x_hat, no_eff = lmmse_equalizer(y, h,
-                                        (no * self.eye).to(torch.complex64))
+        self.devices.update(str(t.device) for t in (b, x, no, y, h))
+        return b, x.shape, y, h, (no * self.eye).to(torch.complex64)
+
+    def stages(self, batch_size, ebno_db, mark=lambda name: None):
+        """One MC iteration of the MIMO link, ``mark``ing the end of each
+        stage: (info bits, decisions) [batch, 4, 512]."""
+        b, shape, y, h, s = self.channel_uses(batch_size, ebno_db, mark)
+        x_hat, no_eff = lmmse_equalizer(y, h, s)
         mark("LMMSE equalizer")
         llr = self.demapper(x_hat.reshape(shape), no_eff.reshape(shape))
         mark("APP demap")
         b_hat = self.dec(llr)
         mark("K1: LDPC5GDecoder (BP-20)")
-        self.devices.update(str(t.device)
-                            for t in (b, x, no, y, h, x_hat, llr, b_hat))
+        self.devices.update(str(t.device) for t in (x_hat, llr, b_hat))
         return b, b_hat
 
     def __call__(self, batch_size, ebno_db):
@@ -3515,9 +3537,12 @@ def run_flat_links(dev, card, per_update):
     block fading against themselves on the CPU, CIRDataset into
     OFDMChannel on the card; K1 alone at the links' code and batch,
     held identical to its plain decode and timed in turns with it,
-    beside its bound (``per_update`` as ``lifted_bound`` takes it)."""
+    beside its bound (``per_update`` as ``lifted_bound`` takes it).
+    Returns the whitened-LMMSE kernel's launches in the MIMO link's
+    sim_ber: one per MC iteration (none in the BSC link's)."""
     c, cb = FLAT, FLAT_BSC
     link = FlatLink(dev)
+    lmmse_launches = {}
     for name, model, point, batch, mc_iter, per_call in (
             ("mimo", link, c["ebno_db"], c["batch"], c["mc_iter"],
              c["num_tx"]),
@@ -3530,7 +3555,7 @@ def run_flat_links(dev, card, per_update):
                             verbose=False)
         torch.cuda.synchronize()
         launches = {kern.name: dict(kern.variant_launches)
-                    for kern in KERNELS}
+                    for kern in KERNELS + (LMMSE_WHITENED_KERNEL,)}
         bler = float(bler[0])
         lo, hi = rate_band(*FLAT_JAX[name], batch * per_call * mc_iter)
         print(f"    {name} at {point}: BLER {bler:.5f} over "
@@ -3543,10 +3568,15 @@ def run_flat_links(dev, card, per_update):
                                  f"[{lo}, {hi}]")
         if link.devices != {str(dev)}:
             raise AssertionError(f"[26] {name}: tensors on {link.devices}")
+        lmmse = {"c64": mc_iter} if name == "mimo" else {}
         if launches != {LIFTED_BP_KERNEL.name: {"f32": link.calls},
-                        LAYERED_BP_KERNEL.name: {}} or link.calls != mc_iter:
+                        LAYERED_BP_KERNEL.name: {},
+                        LMMSE_WHITENED_KERNEL.name: lmmse} \
+                or link.calls != mc_iter:
             raise AssertionError(f"[26] {name}: {launches} for {link.calls} "
                                  "decoder calls")
+        if name == "mimo":
+            lmmse_launches = lmmse
 
     batch, ebno_db = c["batch"], c["ebno_db"]
     with torch.no_grad():
@@ -3625,6 +3655,7 @@ def run_flat_links(dev, card, per_update):
           f"{100 * bound[0] / min(k_a, k_b):.1f} % of it; FP32 issue "
           f"{bound[2]:.3f} ms")
     print(f"      {launch_line('ldpc_lifted_bp', dec.lifted, n_cw)}")
+    return lmmse_launches
 
 
 PULSE_FILTERS = {
@@ -3819,7 +3850,7 @@ def flat_phases(card, results, per_update):
     t0 = time.perf_counter()
     print(f"[26] coded MIMO over correlated flat fading (4 x 16, 16-QAM, "
           f"BG2 Z=64) and the BSC link through sim_ber, K1, on {card}")
-    run_flat_links(dev, card, per_update)
+    lmmse_launches = run_flat_links(dev, card, per_update)
     print(f"    phase 26: {time.perf_counter() - t0:.1f} s")
     t1 = time.perf_counter()
     print(f"[27] pulse shaping (RRC, up/down-sampling, windows) on {card}")
@@ -3831,7 +3862,7 @@ def flat_phases(card, results, per_update):
     print(f"    phase 28: {time.perf_counter() - t1:.1f} s; phases 26-28: "
           f"{time.perf_counter() - t0:.1f} s")
     sys.stdout.flush()
-    results.put({})
+    results.put({LMMSE_WHITENED_KERNEL.name: lmmse_launches})
 
 
 def rt_scene(rt, name_or_scene, tx, rx, frequency=3.5e9):
@@ -5266,6 +5297,19 @@ def grad_phases(card, results, function_ops):
     } for name, _, kern, _, replaces in GRAD_VARIANTS])
 
 
+def print_ptxas(kern):
+    """Builds ``kern`` and prints ptxas's registers and spills of each of
+    its entry functions."""
+    kern.library()
+    name = None
+    for line in kern.build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        elif name and ("registers" in line or "spill" in line):
+            print(f"    ptxas {name}: {line.split(':', 1)[-1].strip()}")
+
+
 def lin_interp_phase(card, launches):
     """Phase 38: the linear interpolators' kernel (``csrc/lin_interp.cu``)
     at the 273-PRB PUSCH's shape (``benchmark``'s ``pusch_273prb.ls_lin``:
@@ -5273,14 +5317,7 @@ def lin_interp_phase(card, launches):
     kernels-line entry, with ``launches`` (phase 25's count in the link's
     timed iterations)."""
     dev = torch.device("cuda", 0)
-    LIN_INTERP_KERNEL.library()
-    name = None
-    for line in LIN_INTERP_KERNEL.build_log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name = m.group(1)
-        elif name and ("registers" in line or "spill" in line):
-            print(f"    ptxas {name}: {line.split(':', 1)[-1].strip()}")
+    print_ptxas(LIN_INTERP_KERNEL)
     pc = pusch_config(273)
     rg = PUSCHTransmitter(pc, device=dev).resource_grid
     est = PUSCHLSChannelEstimator(
@@ -5347,6 +5384,93 @@ def lin_interp_phase(card, launches):
         "bound_ms": bound,
         "bound_by": "bytes",
         "library_ms": lib1,
+    }
+
+
+def lmmse_c128(y, h, s):
+    """``lmmse_equalizer``'s formula in complex128 NumPy: L^-1 whitening,
+    G = (H_w^H H_w + I)^-1 H_w^H, d = diag(G H_w), x_hat = G y_w / d,
+    no_eff = Re(1/d - 1); y [N, M], h [N, M, K], s [M, M]."""
+    y, h, s = (np.asarray(t.cpu(), np.complex128) for t in (y, h, s))
+    l_inv = np.linalg.inv(np.linalg.cholesky(s))
+    hw, yw = l_inv @ h, (l_inv @ y[..., None])[..., 0]
+    hwh = np.conj(np.swapaxes(hw, -1, -2))
+    g = np.linalg.solve(hwh @ hw + np.eye(h.shape[-1]), hwh)
+    d = np.diagonal(g @ hw, axis1=-2, axis2=-1)
+    return (g @ yw[..., None])[..., 0] / d, (1 / d - 1).real
+
+
+def lmmse_phase(card, launches):
+    """Phase 39: the whitened-LMMSE kernel (``csrc/lmmse_whitened.cu``) on
+    one MC iteration's own channel uses of phase 26's MIMO link (the
+    ``benchmark``'s ``flat_mimo_4x16.lmmse_bp20``: N = 4096 x 256, M = 16,
+    K = 4, S = N0 I); returns its kernels-line entry, with ``launches``
+    (phase 26's count in the link's sim_ber). ``plain_ms`` is the plain
+    path's, the library calls the kernel replaced."""
+    dev = torch.device("cuda", 0)
+    print_ptxas(LMMSE_WHITENED_KERNEL)
+    config.seed = FLAT_SEED
+    link = FlatLink(dev)
+    with torch.no_grad():
+        _, _, y, h, s = link.channel_uses(FLAT["batch"], FLAT["ebno_db"])
+        torch.cuda.synchronize()
+        LMMSE_WHITENED_KERNEL.reset()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            x_k, n_k = lmmse_equalizer(y, h, s)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        if LMMSE_WHITENED_KERNEL.variant_launches != {"c64": 1}:
+            raise AssertionError(f"[39] an lmmse_equalizer call launched "
+                                 f"{LMMSE_WHITENED_KERNEL.variant_launches}")
+        x_p, n_p = lmmse_equalizer_plain(y, h, s)
+        (n, m), k = y.shape, h.shape[-1]
+        sample = torch.arange(0, n, 97, device=dev)
+        gaps = {}
+        for what, kern, plain, want in zip(
+                ("x_hat", "no_eff"), (x_k, n_k), (x_p, n_p),
+                lmmse_c128(y[sample], h[sample], s)):
+            scale = np.abs(want).max()
+            gaps[what] = (
+                float((kern - plain).abs().max() / plain.abs().max()),
+                np.abs(kern[sample].cpu().numpy() - want).max() / scale,
+                np.abs(plain[sample].cpu().numpy() - want).max() / scale)
+            if not max(gaps[what]) < LMMSE_RTOL:
+                raise AssertionError(f"[39] {what}: kernel against plain, "
+                                     f"kernel and plain against complex128 "
+                                     f"{gaps[what]} (bound {LMMSE_RTOL})")
+        max_err = float((x_k - x_p).abs().max())
+        args = tuple(t.contiguous() for t in (y, h, s))
+        (k1, k2), (p1, p2) = in_turns(lambda: lmmse_whitened_cuda(*args),
+                                      lambda: lmmse_equalizer_plain(y, h, s),
+                                      200, 5)
+    nbytes = n * (m + m * k + k) * 8 + n * k * 4
+    bound = nbytes / PEAK_BYTES_S * 1e3
+    ms = min(k1, k2)
+    shape = f"N={n}, M={m}, K={k}, S=N0 I"
+    print(f"    {shape}: kernel {k1:.4f} / {k2:.4f} ms, plain "
+          f"{p1:.3f} / {p2:.3f} ms; bound {bound:.4f} ms "
+          f"({nbytes / 1e6:.1f} MB), {bound / ms:.1%} of it; of the largest "
+          f"value, kernel-plain / kernel-c128 / plain-c128 (every 97th "
+          f"use): x_hat {gaps['x_hat'][0]:.2e} / {gaps['x_hat'][1]:.2e} / "
+          f"{gaps['x_hat'][2]:.2e}, no_eff {gaps['no_eff'][0]:.2e} / "
+          f"{gaps['no_eff'][1]:.2e} / {gaps['no_eff'][2]:.2e} (bound "
+          f"{LMMSE_RTOL:.0e}); max |kernel-plain| x_hat {max_err:.3e}; one "
+          f"launch, no host sync; on {card}")
+    return {
+        "name": LMMSE_WHITENED_KERNEL.name,
+        "route": "cuda",
+        "source": "sionna_tpu_torch/csrc/" + LMMSE_WHITENED_KERNEL.source.name,
+        "replaces": None,
+        "launches": launches,
+        "max_abs_err": max_err,
+        "shape": shape,
+        "ms": ms,
+        "plain_ms": min(p1, p2),
+        "bound_ms": bound,
+        "bound_by": "bytes",
+        "library_ms": None,
     }
 
 
@@ -5679,7 +5803,8 @@ def main():
     print(f"    phases 23-25 took {time.perf_counter() - t0:.1f} s")
     # phases 26-28 (flat fading, pulse shaping, the optical link), likewise
     t0 = time.perf_counter()
-    run_in_process(flat_phases, card, 600, ops_per_update["log1p"])
+    flat_launches = run_in_process(flat_phases, card, 600,
+                                   ops_per_update["log1p"])
     print(f"    phases 26-28 took {time.perf_counter() - t0:.1f} s")
     # phases 29-31 (BASELINE config 4, the ray tracer), likewise
     t0 = time.perf_counter()
@@ -5706,7 +5831,13 @@ def main():
     print(f"[38] the linear interpolators' kernel against its plain version "
           f"and the dense einsum at the 273-PRB PUSCH's shape on {card}")
     lin_entry = lin_interp_phase(card, nr_launches[LIN_INTERP_KERNEL.name])
-    print(f"    phase 38 took {time.perf_counter() - t0:.1f} s; the script "
+    print(f"    phase 38 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"[39] the whitened-LMMSE kernel against its plain path on the "
+          f"flat MIMO link's channel uses on {card}")
+    lmmse_entry = lmmse_phase(card,
+                              flat_launches[LMMSE_WHITENED_KERNEL.name])
+    print(f"    phase 39 took {time.perf_counter() - t0:.1f} s; the script "
           f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
@@ -5723,7 +5854,7 @@ def main():
         "bound_by": bounds[name][1],
         "library_ms": None,
     } for name, _, kern, _, replaces in VARIANTS] + grad_entries
-        + [lin_entry]}))
+        + [lin_entry, lmmse_entry]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
