@@ -3,7 +3,8 @@
 kernel and through its plain path (``lmmse_equalizer_plain``, the library
 calls it replaces) against a complex128 NumPy evaluation of the same
 formula, at the flat MIMO link's shape (N = 1,048,576 channel uses of a
-16 x 4 system, S = N0 I), with a general positive-definite S, at M in
+16 x 4 system, S = N0 I) and on one MC iteration's own channel uses of
+that link, with a general positive-definite S, at M in
 {1, 5, 8, 16} and K in {1, 2, 4}, at an N that is no multiple of the
 kernel's tile, with S expanded over the batch, with more than one batch
 dimension and over badly conditioned channels; one launch per call and no
@@ -23,15 +24,22 @@ against complex128 (float32 whitening and a 4 x 4 Cholesky solve over
 channels of condition number up to about 20).
 """
 
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
-from sionna_tpu_torch.phy.channel import KroneckerModel
+from sionna_tpu_torch.phy import BinarySource, Mapper
+from sionna_tpu_torch.phy.channel import FlatFadingChannel, KroneckerModel
 from sionna_tpu_torch.phy.channel.utils import exp_corr_mat
+from sionna_tpu_torch.phy.fec.ldpc import LDPC5GEncoder
 from sionna_tpu_torch.phy.mimo.equalization import (
     LMMSE_WHITENED_KERNEL, lmmse_equalizer, lmmse_equalizer_plain)
+from sionna_tpu_torch.phy.utils import ebnodb2no
 
+ROOT = Path(__file__).resolve().parents[1]
 C64 = torch.complex64
 FLAT_RTOL = 4e-5
 PLAIN_SLACK = 1e-6
@@ -117,6 +125,43 @@ def test_flat_link_shape():
     dev = _card()
     y, h = _system(dev, (1 << 20,), 16, 4, seed=1)
     s = (0.3 * torch.eye(16, device=dev)).to(C64)
+    _check(y, h, s, sample=torch.arange(0, 1 << 20, 97, device=dev),
+           flat=True)
+
+
+@pytest.mark.card
+def test_flat_link_own_channel_uses():
+    """One MC iteration of the benchmark's flat MIMO link up to its
+    equalizer (batch 4096 at Eb/No 3.5 dB: coded 16-QAM over
+    ``FlatFadingChannel`` with the configuration's Kronecker correlation,
+    N0 = ebnodb2no(3.5, 4, k / n) sqrt(16), S = N0 I), as the link calls
+    ``lmmse_equalizer``: no host sync (the plain path's Cholesky would
+    raise), one launch, and the kernel and the plain path against
+    complex128 on every 97th channel use."""
+    dev = _card()
+    cfg = json.loads((ROOT / "benchmark" / "configs"
+                      / "flat_mimo_4x16.json").read_text())
+    m, k = cfg["num_rx_ant"], cfg["num_tx_ant"]
+    nbps, code = cfg["num_bits_per_symbol"], cfg["code"]
+    gen = torch.Generator(device=dev).manual_seed(26)
+    bits = BinarySource(device=dev)([4096, k, code["k"]], generator=gen)
+    x = Mapper("qam", nbps, device=dev)(
+        LDPC5GEncoder(code["k"], code["n"], device=dev)(bits))
+    corr = KroneckerModel(
+        exp_corr_mat(cfg["channel"]["tx_exp_corr"], k, device=dev),
+        exp_corr_mat(cfg["channel"]["rx_exp_corr"], m, device=dev))
+    no = ebnodb2no(3.5, nbps, code["k"] / code["n"]).to(dev) * m ** 0.5
+    y, h = FlatFadingChannel(k, m, spatial_corr=corr, return_channel=True,
+                             device=dev)(x.reshape(-1, k), no, generator=gen)
+    s = (no * torch.eye(m, device=dev)).to(C64)
+    assert y.shape == (1 << 20, m) and h.shape == (1 << 20, m, k)
+    lmmse_equalizer(y, h, s)  # built and loaded before the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lmmse_equalizer(y, h, s)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     _check(y, h, s, sample=torch.arange(0, 1 << 20, 97, device=dev),
            flat=True)
 
