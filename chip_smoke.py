@@ -159,8 +159,9 @@ system-level channel are XLA code; phase 22's decoder runs K1.
     estimator);
 25. runs the same settings at 273 PRBs (100 MHz at 30 kHz: a 167,976-bit
     TB in 20 code blocks of BG1 at Z=384, n=15728), batch 64, for 6 MC
-    iterations: their TB BLER, one K1 launch and two of the taps' kernel
-    per iteration; K1 alone on the iteration's own decoder input (1,280
+    iterations: their TB BLER, one K1 launch, two of the taps' kernel and
+    one of the per-RE LMMSE kernel (``csrc/lmmse_per_re.cu``) per
+    iteration; K1 alone on the iteration's own decoder input (1,280
     codewords, BP-20) identical to its plain decode.
 
 Phases 23-25 run in a process of their own. No kernel is written for
@@ -312,7 +313,11 @@ render traces its rays through phase 30's intersection code.
     plain path (``lmmse_equalizer_plain``, the library calls it
     replaced) over every channel use within ``LMMSE_RTOL`` of the
     largest value, ms per call of both in turns, and the kernel's share
-    of its byte bound: the kernels line's ``lmmse_whitened`` entry.
+    of its byte bound: the kernels line's ``lmmse_whitened`` entry; then
+    the per-RE kernel (``csrc/lmmse_per_re.cu``) likewise on one MC
+    iteration's own REs of phase 25's 273-PRB PUSCH (N = 2,935,296, M =
+    4, K = 2, an S at each RE, as its detector hands them): the
+    ``lmmse_per_re`` entry.
 
 Phases 15 and 16 run in a process of their own; each link is held to
 its BLER band from a JAX run of the same link
@@ -333,8 +338,9 @@ port end to end; ``sionna_tpu_torch.tools.kernel_compare`` times a
 kernel against its old version; a kernel's own card checks (launch
 counts, host syncs, higher-precision references, edge shapes) live in
 its ``card``-marked test file (``tests/test_torch_lin_interp_card.py``,
-``tests/test_torch_lmmse_card.py``). A later kernel adds a card test
-file and one ``kernels`` entry, and no phase; a path whose speed
+``tests/test_torch_lmmse_card.py``,
+``tests/test_torch_lmmse_per_re_card.py``). A later kernel adds a card
+test file and one ``kernels`` entry, and no phase; a path whose speed
 matters gets a benchmark cell.
 """
 
@@ -389,7 +395,8 @@ from sionna_tpu_torch.phy.fec.turbo import TurboDecoder, TurboEncoder
 from sionna_tpu_torch.phy.fec.utils import load_parity_check_examples, pcm2gm
 from sionna_tpu_torch.phy.mimo import StreamManagement, lmmse_equalizer
 from sionna_tpu_torch.phy.mimo.equalization import (
-    LMMSE_WHITENED_KERNEL, lmmse_equalizer_plain, lmmse_whitened_cuda)
+    LMMSE_PER_RE_KERNEL, LMMSE_WHITENED_KERNEL, lmmse_equalizer_plain,
+    lmmse_per_re_cuda, lmmse_whitened_cuda)
 from sionna_tpu_torch.phy.ofdm import (EPDetector, KBestDetector,
                                        LinearDetector, LMMSEEqualizer,
                                        LMMSEInterpolator, LSChannelEstimator,
@@ -1584,7 +1591,8 @@ def card_line():
 
 
 def reset_launches():
-    for kern in KERNELS + (LIN_INTERP_KERNEL, LMMSE_WHITENED_KERNEL):
+    for kern in KERNELS + (LIN_INTERP_KERNEL, LMMSE_WHITENED_KERNEL,
+                           LMMSE_PER_RE_KERNEL):
         kern.reset()
 
 
@@ -2955,10 +2963,11 @@ def run_pusch_link(dev):
 def run_pusch_full_width(dev):
     """Phase 25: the same settings at 273 PRBs (100 MHz at 30 kHz), batch
     64: after a warm-up, every count at 0 before PUSCH_FULL["mc_iter"]
-    iterations and read after (one K1 launch and two of the "lin" taps'
-    kernel per iteration), their TB BLER; then K1 alone on the last
-    iteration's own decoder input, held identical to its plain decode.
-    Returns the "lin" taps' kernel's launches in the counted iterations."""
+    iterations and read after (one K1 launch, two of the "lin" taps'
+    kernel and one of the per-RE LMMSE kernel per iteration), their TB
+    BLER; then K1 alone on the last iteration's own decoder input, held
+    identical to its plain decode. Returns the launches of the taps'
+    kernel and of the per-RE LMMSE kernel in the counted iterations."""
     cfg = PUSCH_FULL
     batch, ebno_db, iters = cfg["batch"], cfg["ebno_db"], cfg["mc_iter"]
     link = PuschLink(dev, cfg["n_size_grid"])
@@ -2984,16 +2993,21 @@ def run_pusch_full_width(dev):
         launches = {kern.name: dict(kern.variant_launches)
                     for kern in KERNELS}
         lin = dict(LIN_INTERP_KERNEL.variant_launches)
+        per_re = dict(LMMSE_PER_RE_KERNEL.variant_launches)
     bler = errors / (iters * batch)
     print(f"    {iters} MC iterations at {ebno_db} dB: TB BLER {bler:.4f}, "
           f"launches {launches} (one K1 launch per iteration), "
           f"{LIN_INTERP_KERNEL.name} {lin} (two per estimator call), "
+          f"{LMMSE_PER_RE_KERNEL.name} {per_re} (one per detector call), "
           f"devices {sorted(link.devices)}")
     if k1 != iters or launches != {LIFTED_BP_KERNEL.name: {"f32": iters},
                                    LAYERED_BP_KERNEL.name: {}}:
         raise AssertionError(f"[25] {launches} in {iters} iterations")
     if lin != {"c64": iters, "f32": iters}:
         raise AssertionError(f"[25] {LIN_INTERP_KERNEL.name} {lin} in "
+                             f"{iters} iterations")
+    if per_re != {"4x2": iters}:
+        raise AssertionError(f"[25] {LMMSE_PER_RE_KERNEL.name} {per_re} in "
                              f"{iters} iterations")
     if link.devices != {"cuda:0"}:
         raise AssertionError(f"[25] tensors on {link.devices}")
@@ -3010,13 +3024,13 @@ def run_pusch_full_width(dev):
              f"BP-{it} boxplus-phi")
     err = assert_identical(ker(llr, it), plain(llr, it), f"[25] {shape}")
     print(f"    ldpc_lifted_bp, {shape}: max|kernel-plain| {err:.3e}")
-    return sum(lin.values())
+    return sum(lin.values()), sum(per_re.values())
 
 
 def nr_phases(card, results):
     """Phases 23-25, run in a fresh process by ``main``. Puts the "lin"
-    taps' kernel's launches in phase 25's counted iterations on
-    ``results``."""
+    taps' kernel's and the per-RE LMMSE kernel's launches in phase 25's
+    counted iterations on ``results``."""
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     config.seed = PUSCH_SEED
@@ -3027,9 +3041,10 @@ def nr_phases(card, results):
           f"MCS 14) over CDL-B through sim_ber on {card}")
     run_pusch_link(dev)
     print(f"[25] the same settings at 273 PRBs, batch 64 on {card}")
-    lin_launches = run_pusch_full_width(dev)
+    lin_launches, per_re_launches = run_pusch_full_width(dev)
     sys.stdout.flush()
-    results.put({LIN_INTERP_KERNEL.name: lin_launches})
+    results.put({LIN_INTERP_KERNEL.name: lin_launches,
+                 LMMSE_PER_RE_KERNEL.name: per_re_launches})
 
 
 class FlatLink:
@@ -4668,6 +4683,71 @@ def lmmse_phase(card, launches):
     }
 
 
+def lmmse_per_re_entry(card, launches):
+    """Phase 39, its second part: the per-RE LMMSE kernel
+    (``csrc/lmmse_per_re.cu``) on one MC iteration's own REs of phase 25's
+    273-PRB PUSCH (the ``benchmark``'s ``pusch_273prb.ls_lin``: N = 64 x
+    14 x 3,276, M = 4, K = 2, an S at each RE), y, h and S as its detector
+    hands them, against its plain path (``lmmse_equalizer_plain``, the
+    unrolled tensor operations it replaced); returns its kernels-line
+    entry, with ``launches`` (phase 25's count in its counted
+    iterations). ``plain_ms`` is the plain path's."""
+    dev = torch.device("cuda", 0)
+    print_ptxas(LMMSE_PER_RE_KERNEL)
+    config.seed = PUSCH_SEED
+    cfg = PUSCH_FULL
+    link = PuschLink(dev, cfg["n_size_grid"])
+    seen = {}
+    link.rx._mimo_detector._detector.register_forward_pre_hook(
+        lambda module, args: seen.__setitem__("ys", args))
+    with torch.no_grad():
+        link(cfg["batch"], PUSCH["ebno_db"])
+        y, h, s = seen["ys"]
+        del link, seen
+        x_k, n_k = lmmse_equalizer(y, h, s)
+        x_p, n_p = lmmse_equalizer_plain(y, h, s)
+        m, k = h.shape[-2:]
+        n = y[..., 0].numel()
+        gaps = {}
+        for what, kern, plain in (("x_hat", x_k, x_p), ("no_eff", n_k, n_p)):
+            gaps[what] = float((kern - plain).abs().max()
+                               / plain.abs().max())
+            if not gaps[what] < LMMSE_RTOL:
+                raise AssertionError(f"[39] {what}: per-RE kernel against "
+                                     f"plain {gaps[what]} (bound "
+                                     f"{LMMSE_RTOL})")
+        max_err = float((x_k - x_p).abs().max())
+        del x_k, n_k, x_p, n_p
+        (k1, k2), (p1, p2) = in_turns(lambda: lmmse_per_re_cuda(y, h, s),
+                                      lambda: lmmse_equalizer_plain(y, h, s),
+                                      200, 5)
+    # each RE: y, h and S read, x_hat and no_eff written
+    nbytes = n * (m + m * k + m * m + k) * 8 + n * k * 4
+    bound = nbytes / PEAK_BYTES_S * 1e3
+    ms = min(k1, k2)
+    shape = f"N={n}, M={m}, K={k}, an S at each RE"
+    print(f"    {shape}: kernel {k1:.4f} / {k2:.4f} ms, plain "
+          f"{p1:.3f} / {p2:.3f} ms; bound {bound:.4f} ms "
+          f"({nbytes / 1e6:.1f} MB), {bound / ms:.1%} of it; kernel-plain "
+          f"of the largest value: x_hat {gaps['x_hat']:.2e}, no_eff "
+          f"{gaps['no_eff']:.2e} (bound {LMMSE_RTOL:.0e}); max "
+          f"|kernel-plain| x_hat {max_err:.3e}; on {card}")
+    return {
+        "name": LMMSE_PER_RE_KERNEL.name,
+        "route": "cuda",
+        "source": "sionna_tpu_torch/csrc/" + LMMSE_PER_RE_KERNEL.source.name,
+        "replaces": None,
+        "launches": launches,
+        "max_abs_err": max_err,
+        "shape": shape,
+        "ms": ms,
+        "plain_ms": min(p1, p2),
+        "bound_ms": bound,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }
+
+
 def run_in_process(target, card, timeout, *args):
     """Runs ``target(card, results, *args)`` in a fresh spawned process and
     returns what it put on the queue ``results`` (None if nothing);
@@ -4983,10 +5063,12 @@ def main():
     lin_entry = lin_interp_phase(card, nr_launches[LIN_INTERP_KERNEL.name])
     print(f"    phase 38 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    print(f"[39] the whitened-LMMSE kernel against its plain path on the "
-          f"flat MIMO link's channel uses on {card}")
+    print(f"[39] the whitened-LMMSE kernels against their plain path on the "
+          f"flat MIMO link's channel uses and the PUSCH's REs on {card}")
     lmmse_entry = lmmse_phase(card,
                               flat_launches[LMMSE_WHITENED_KERNEL.name])
+    per_re_entry = lmmse_per_re_entry(
+        card, nr_launches[LMMSE_PER_RE_KERNEL.name])
     print(f"    phase 39 took {time.perf_counter() - t0:.1f} s; the script "
           f"took {time.perf_counter() - t_start:.1f} s")
 
@@ -5004,7 +5086,7 @@ def main():
         "bound_by": bounds[name][1],
         "library_ms": None,
     } for name, _, kern, _, replaces in VARIANTS] + grad_entries
-        + [lin_entry, lmmse_entry]}))
+        + [lin_entry, lmmse_entry, per_re_entry]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
