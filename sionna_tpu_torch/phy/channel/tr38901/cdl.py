@@ -5,7 +5,9 @@ The model tables are read from the JAX package's JSON files, by path.
 ``__call__`` makes every random draw (velocities, the random coupling of
 the ray angles, the ray phases) from one ``torch.Generator`` and hands
 them to ``cir``, which computes the CIR deterministically. The model
-has no trainable parameters.
+has no trainable parameters. A draw is a span ``CDL`` while a
+``Profiler`` is active (the model is not a ``Block``, so it opens its
+own).
 """
 
 import json
@@ -16,6 +18,7 @@ import torch
 
 from ...config import config
 from ...constants import PI
+from ...utils.profiling import traced
 from ..channel_model import ChannelModel
 from .rays import Rays
 from .channel_coefficients import Topology, ChannelCoefficientsGenerator
@@ -148,6 +151,7 @@ class CDL(ChannelModel):
         return out
 
     # ------------------------------------------------------------------
+    @traced("CDL")
     def __call__(self, batch_size, num_time_steps, sampling_frequency,
                  generator=None, device=None):
         if generator is not None:
