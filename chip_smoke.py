@@ -317,7 +317,11 @@ render traces its rays through phase 30's intersection code.
     the per-RE kernel (``csrc/lmmse_per_re.cu``) likewise on one MC
     iteration's own REs of phase 25's 273-PRB PUSCH (N = 2,935,296, M =
     4, K = 2, an S at each RE, as its detector hands them): the
-    ``lmmse_per_re`` entry.
+    ``lmmse_per_re`` entry; then the channel-precoding kernel
+    (``csrc/precode_channel.cu``) at the 273-PRB PUSCH's h (64 x 4 x 2 x
+    14 x 3,276, TPMI 1) against its plain path (``precode_channel_plain``,
+    the cuBLAS product it replaced, also ``library_ms``): the
+    ``precode_channel`` entry.
 
 Phases 15 and 16 run in a process of their own; each link is held to
 its BLER band from a JAX run of the same link
@@ -339,7 +343,8 @@ kernel against its old version; a kernel's own card checks (launch
 counts, host syncs, higher-precision references, edge shapes) live in
 its ``card``-marked test file (``tests/test_torch_lin_interp_card.py``,
 ``tests/test_torch_lmmse_card.py``,
-``tests/test_torch_lmmse_per_re_card.py``). A later kernel adds a card
+``tests/test_torch_lmmse_per_re_card.py``,
+``tests/test_torch_precode_card.py``). A later kernel adds a card
 test file and one ``kernels`` entry, and no phase; a path whose speed
 matters gets a benchmark cell.
 """
@@ -411,6 +416,8 @@ from sionna_tpu_torch.phy.ofdm.channel_estimation import (
 from sionna_tpu_torch.phy.nr import (PUSCHConfig, PUSCHLSChannelEstimator,
                                     PUSCHReceiver, PUSCHTransmitter,
                                     TBDecoder, TBEncoder)
+from sionna_tpu_torch.phy.nr.pusch_receiver import (
+    PRECODE_CHANNEL_KERNEL, precode_channel_cuda, precode_channel_plain)
 from sionna_tpu_torch.phy.nr.utils import CodedAWGNChannelNR
 from sionna_tpu_torch.phy.signal import (CustomFilter, Downsampling,
                                          RaisedCosineFilter,
@@ -2898,8 +2905,9 @@ def run_pusch_link(dev):
     PUSCH["ebno_db"], every count at 0 just before and read just after:
     the TB BLER inside the JAX band, one K1 launch per TBDecoder call and
     two of the "lin" taps' kernel (complex64 and float32) per estimator
-    call; then perfect CSI (no estimator) and the time domain at a high
-    SNR (BER 0), and the min-sum TBDecoder on K2."""
+    call; then perfect CSI (no estimator; one launch of the channel's
+    precoding kernel) and the time domain at a high SNR (BER 0), and the
+    min-sum TBDecoder on K2. Returns the precoding kernel's launches."""
     cfg = PUSCH
     link = PuschLink(dev, cfg["n_size_grid"])
     reset_launches()
@@ -2930,6 +2938,7 @@ def run_pusch_link(dev):
     if lin != {"c64": link.calls, "f32": link.calls}:
         raise AssertionError(f"[24] {LIN_INTERP_KERNEL.name} {lin} for "
                              f"{link.calls} estimator calls")
+    precode_launches = 0
     for what, kw, variant in (
             ("perfect CSI", dict(csi="perfect"), "f32"),
             ("time domain (TimeChannel, OFDMDemodulator)",
@@ -2937,14 +2946,17 @@ def run_pusch_link(dev):
             ("min-sum TBDecoder, BP-12", dict(minsum=True), "f32+minsum")):
         link = PuschLink(dev, cfg["n_size_grid"], **kw)
         reset_launches()
+        PRECODE_CHANNEL_KERNEL.reset()
         b, b_hat = link(PUSCH_CHECK["batch"], PUSCH_CHECK["ebno_db"])
         ber = float((b != b_hat).float().mean())
         launches = {kern.name: dict(kern.variant_launches)
                     for kern in KERNELS}
         lin = dict(LIN_INTERP_KERNEL.variant_launches)
+        precode = dict(PRECODE_CHANNEL_KERNEL.variant_launches)
         print(f"    {what}: BER {ber} at {PUSCH_CHECK['ebno_db']} dB, batch "
               f"{PUSCH_CHECK['batch']}; launches {launches}, "
-              f"{LIN_INTERP_KERNEL.name} {lin}; devices "
+              f"{LIN_INTERP_KERNEL.name} {lin}, "
+              f"{PRECODE_CHANNEL_KERNEL.name} {precode}; devices "
               f"{sorted(link.devices)}")
         if ber != 0.0:
             raise AssertionError(f"[24] {what}: BER {ber} at "
@@ -2958,6 +2970,12 @@ def run_pusch_link(dev):
         if lin != ({} if link.perfect else {"c64": 1, "f32": 1}):
             raise AssertionError(f"[24] {what}: {LIN_INTERP_KERNEL.name} "
                                  f"{lin} in one call")
+        if precode != ({"2x2": 1} if link.perfect else {}):
+            raise AssertionError(f"[24] {what}: "
+                                 f"{PRECODE_CHANNEL_KERNEL.name} {precode} "
+                                 f"in one call")
+        precode_launches += sum(precode.values())
+    return precode_launches
 
 
 def run_pusch_full_width(dev):
@@ -3030,7 +3048,8 @@ def run_pusch_full_width(dev):
 def nr_phases(card, results):
     """Phases 23-25, run in a fresh process by ``main``. Puts the "lin"
     taps' kernel's and the per-RE LMMSE kernel's launches in phase 25's
-    counted iterations on ``results``."""
+    counted iterations, and the channel-precoding kernel's in phase 24's
+    perfect-CSI call, on ``results``."""
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     config.seed = PUSCH_SEED
@@ -3039,12 +3058,13 @@ def nr_phases(card, results):
     run_nr_goldens(dev)
     print(f"[24] the PUSCH tutorial's link (16 PRBs, 2 layers, TPMI 1, "
           f"MCS 14) over CDL-B through sim_ber on {card}")
-    run_pusch_link(dev)
+    precode_launches = run_pusch_link(dev)
     print(f"[25] the same settings at 273 PRBs, batch 64 on {card}")
     lin_launches, per_re_launches = run_pusch_full_width(dev)
     sys.stdout.flush()
     results.put({LIN_INTERP_KERNEL.name: lin_launches,
-                 LMMSE_PER_RE_KERNEL.name: per_re_launches})
+                 LMMSE_PER_RE_KERNEL.name: per_re_launches,
+                 PRECODE_CHANNEL_KERNEL.name: precode_launches})
 
 
 class FlatLink:
@@ -4748,6 +4768,61 @@ def lmmse_per_re_entry(card, launches):
     }
 
 
+def precode_channel_entry(card, launches):
+    """Phase 39, its last part: the channel-precoding kernel
+    (``csrc/precode_channel.cu``) at the 273-PRB PUSCH's h (the
+    ``benchmark``'s ``pusch_273prb.perfect_csi``: [64, 1, 4, 1, 2, 14,
+    3276], TPMI 1) against its plain path (``precode_channel_plain``: the
+    permute, the cuBLAS complex64 matrix product and the permute back,
+    which the port ran before the kernel); returns its kernels-line entry,
+    with ``launches`` (phase 24's count in its perfect-CSI call).
+    ``plain_ms`` and ``library_ms`` are both the plain path's: the
+    contiguous copy of the permuted h that ``torch.matmul`` makes and the
+    cuBLAS product."""
+    dev = torch.device("cuda", 0)
+    print_ptxas(PRECODE_CHANNEL_KERNEL)
+    gen = torch.Generator(device=dev).manual_seed(39)
+    shape = (64, 1, 4, 1, 2, 14, 3276)
+    h = torch.complex(torch.randn(shape, device=dev, generator=gen),
+                      torch.randn(shape, device=dev, generator=gen))
+    w = PUSCHTransmitter(pusch_config(16), device=dev)._precoder._w.to(dev)
+    got, want = precode_channel_cuda(h, w), precode_channel_plain(h, w)
+    # a few f32 roundings of sum_p |h_p| |w_pl|
+    mag = precode_channel_plain(h.abs().to(torch.complex64),
+                                w.abs().to(torch.complex64)).real
+    err = float(torch.max(torch.abs(got - want) / mag))
+    if not err <= 8 * torch.finfo(torch.float32).eps:
+        raise AssertionError(f"[39] precoding kernel against plain: {err}")
+    max_err = float(torch.max(torch.abs(got - want)))
+    del got, want, mag
+    (k1, k2), (p1, p2) = in_turns(lambda: precode_channel_cuda(h, w),
+                                  lambda: precode_channel_plain(h, w),
+                                  200, 20)
+    # h read once (P planes), the L layer planes written once
+    nbytes = h.numel() * 8 + h.numel() // w.shape[1] * w.shape[2] * 8
+    bound = nbytes / PEAK_BYTES_S * 1e3
+    ms = min(k1, k2)
+    print(f"    h {list(shape)} complex64, w {list(w.shape)}: kernel "
+          f"{k1:.4f} / {k2:.4f} ms, plain (cuBLAS) {p1:.3f} / {p2:.3f} ms; "
+          f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB), {bound / ms:.1%} "
+          f"of it; kernel-plain {err:.2e} of sum |h||w|, max "
+          f"{max_err:.3e}; on {card}")
+    return {
+        "name": PRECODE_CHANNEL_KERNEL.name,
+        "route": "cuda",
+        "source": "sionna_tpu_torch/csrc/" + PRECODE_CHANNEL_KERNEL.source.name,
+        "replaces": None,
+        "launches": launches,
+        "max_abs_err": max_err,
+        "shape": f"h {list(shape)}, w {list(w.shape)}",
+        "ms": ms,
+        "plain_ms": min(p1, p2),
+        "bound_ms": bound,
+        "bound_by": "bytes",
+        "library_ms": min(p1, p2),
+    }
+
+
 def run_in_process(target, card, timeout, *args):
     """Runs ``target(card, results, *args)`` in a fresh spawned process and
     returns what it put on the queue ``results`` (None if nothing);
@@ -5064,11 +5139,14 @@ def main():
     print(f"    phase 38 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     print(f"[39] the whitened-LMMSE kernels against their plain path on the "
-          f"flat MIMO link's channel uses and the PUSCH's REs on {card}")
+          f"flat MIMO link's channel uses and the PUSCH's REs, the channel's "
+          f"precoding at the PUSCH's h, on {card}")
     lmmse_entry = lmmse_phase(card,
                               flat_launches[LMMSE_WHITENED_KERNEL.name])
     per_re_entry = lmmse_per_re_entry(
         card, nr_launches[LMMSE_PER_RE_KERNEL.name])
+    precode_entry = precode_channel_entry(
+        card, nr_launches[PRECODE_CHANNEL_KERNEL.name])
     print(f"    phase 39 took {time.perf_counter() - t0:.1f} s; the script "
           f"took {time.perf_counter() - t_start:.1f} s")
 
@@ -5086,7 +5164,7 @@ def main():
         "bound_by": bounds[name][1],
         "library_ms": None,
     } for name, _, kern, _, replaces in VARIANTS] + grad_entries
-        + [lin_entry, lmmse_entry, per_re_entry]}))
+        + [lin_entry, lmmse_entry, per_re_entry, precode_entry]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
